@@ -1,0 +1,34 @@
+"""raytracer2022_tpu_torch: the path tracer ported to PyTorch and CUDA.
+
+A second package beside the JAX reference ``raytracer2022_tpu``, with the
+same layout and names (``scene/``, ``ops/``, ``render/``, ``utils/``,
+``cli.py``, ``native.py``).  It imports ``torch`` and never ``jax``.
+Plain tensor code is PyTorch; the JAX package's one Pallas kernel, the
+8-ary BVH walk, is hand-written CUDA C++ for Hopper (``csrc/bvh8.cu``,
+built with nvcc at first use).  Forward rendering only, for now.
+"""
+
+from .render.camera import Camera, get_rays, make_camera
+from .render.film import linear_image, save_image, tonemap_u8
+from .render.integrator import Schedule, TraceConfig, trace_regen
+from .render.renderer import RenderConfig, render, render_sum, render_sum_n
+from .scene.builder import SceneBuilder
+from .scene.types import SceneData
+
+__all__ = [
+    "Camera",
+    "RenderConfig",
+    "SceneBuilder",
+    "SceneData",
+    "Schedule",
+    "TraceConfig",
+    "get_rays",
+    "linear_image",
+    "make_camera",
+    "render",
+    "render_sum",
+    "render_sum_n",
+    "save_image",
+    "tonemap_u8",
+    "trace_regen",
+]

@@ -1,0 +1,103 @@
+"""Command-line renderer (PyTorch port).
+
+Counterpart of ``raytracer2022_tpu/cli.py`` (the reference's main
+program, raytracer/src/main.rs:28-231).  Renders on ``--device`` (default
+``cuda``; a missing GPU is an error, never a silent move to the CPU).
+
+Example::
+
+    python -m raytracer2022_tpu_torch.cli --scene cornell_box --width 600 \\
+        --height 600 --spp 64 --out output/cornell.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Path tracer, PyTorch/CUDA port")
+    parser.add_argument("--scene", default="cornell_box", help="scene name (scene.library.SCENES)")
+    parser.add_argument("--width", type=int, default=640)
+    parser.add_argument("--height", type=int, default=360)
+    parser.add_argument("--spp", type=int, default=100)
+    parser.add_argument("--max-depth", type=int, default=50)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--spp-per-batch", type=int, default=0)
+    parser.add_argument("--out", default="output/output.png")
+    parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--trace-dir", default=None, help="write a torch.profiler trace here")
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="npz path: save the running radiance sum after every launch and resume "
+        "an interrupted render with the same configuration",
+    )
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.film import save_image, tonemap_u8
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum
+    from raytracer2022_tpu_torch.scene.library import SCENES
+    from raytracer2022_tpu_torch.utils.logging import StageLogger
+    from raytracer2022_tpu_torch.utils.profiling import torch_trace
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("--device cuda: no CUDA device is available (pass --device cpu to run on the CPU)")
+    if args.scene not in SCENES:
+        parser.error(f"unknown scene {args.scene!r}; choose from {sorted(SCENES)}")
+
+    log = StageLogger(quiet=args.quiet)
+    log.stage(1)
+    log.config_echo(
+        image_size=f"{args.width}x{args.height}",
+        sample_per_pixel=args.spp,
+        max_depth=args.max_depth,
+        scene=args.scene,
+        device=device,
+    )
+    bundle = SCENES[args.scene](seed=args.seed, device=device)
+    cam_kwargs = dict(bundle.camera_kwargs)
+    cam_kwargs["aspect_ratio"] = args.width / args.height
+    camera = make_camera(**cam_kwargs, device=device)
+    cfg = RenderConfig(
+        width=args.width,
+        height=args.height,
+        spp=args.spp,
+        max_depth=args.max_depth,
+        background=bundle.background,
+        seed=args.seed,
+        spp_per_batch=args.spp_per_batch,
+    )
+
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    log.stage(2, name)
+    t0 = time.perf_counter()
+    with torch_trace(args.trace_dir):
+        total = render_sum(
+            bundle.scene, camera, cfg, progress=log.progress, checkpoint=args.checkpoint
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+
+    log.stage(3, f"{args.width * args.height * cfg.spp / dt / 1e6:.2f} Mpaths/s on {name}")
+    log.stage(4)
+    img = tonemap_u8(total, cfg.spp)
+
+    log.stage(5)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    save_image(args.out, img)
+    if not args.quiet:
+        print(f'Output image as "{args.out}"')
+    log.done()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

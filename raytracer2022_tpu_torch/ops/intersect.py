@@ -1,0 +1,546 @@
+"""Batched ray-primitive intersection (wavefront closest hit), PyTorch.
+
+Counterpart of ``raytracer2022_tpu/ops/intersect.py``:
+
+  * ``candidate_t`` evaluates candidate hit distances for rays x prims on
+    the broadcast ``(P, N)`` grid, one formula per homogeneous kind window;
+  * ``closest_hit`` folds the dense windows first, then walks every
+    TRIANGLE tree with the 8-ary kernel (:func:`ops.bvh8.traverse_bvh8`);
+  * ``hit_details`` reconstructs the hit record of the winning primitive,
+    from the kernel's winner rows for tree winners.
+
+The JAX package's one-hot MXU fetches (``ops/tables.py``) are plain
+indexing here.  Not ported yet (ROADMAP.md, port queue): constant media and
+unbaked per-primitive transforms, and the cluster walk for trees without an
+8-ary packet tree; both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..scene.types import BOX, MEDIUM, MSPHERE, RECT, RING, SPHERE, TRIANGLE, SceneData
+from .shade import shade_for_mats
+from .vecmath import cross, dot, safe_div, scale, vec3
+
+INF = math.inf
+PI = math.pi
+
+# per-kind param-row count used by the closest-hit t formulas
+NPARAM_T = {SPHERE: 4, MSPHERE: 9, RECT: 6, TRIANGLE: 9, RING: 4, BOX: 6}
+
+_MEDIA_TODO = (
+    "constant media are not ported yet "
+    "(ROADMAP.md, port queue: 'Media and unbaked transforms')"
+)
+_XFORM_TODO = (
+    "unbaked per-primitive transforms (rotated rects/rings/boxes) are not ported yet "
+    "(ROADMAP.md, port queue: 'Media and unbaked transforms')"
+)
+_CLUSTER_TODO = (
+    "trees without an 8-ary packet tree need the cluster walk, not ported yet "
+    "(ROADMAP.md, port queue: 'The cluster walk')"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Hit:
+    """SoA hit record (reference HitRecord, hittable/mod.rs:18-57)."""
+
+    hit: torch.Tensor  # bool[N]
+    t: torch.Tensor  # f32[N]
+    prim: torch.Tensor  # i64[N]
+    p: torch.Tensor  # f32[3, N]
+    normal: torch.Tensor  # f32[3, N] face normal, opposing the ray
+    front: torch.Tensor  # bool[N] (FlipFace applied)
+    u: torch.Tensor  # f32[N]
+    v: torch.Tensor  # f32[N]
+    tex_uv: torch.Tensor  # f32[2, N]
+    mat: torch.Tensor  # i64[N]
+
+
+# --------------------------------------------------------------------------
+# per-kind candidate-t formulas (shapes broadcast)
+# --------------------------------------------------------------------------
+
+
+def _sphere_t(center, radius, o, d, t_min, t_max):
+    """Quadratic two-root selection (sphere.rs:39-66): a root is accepted
+    iff ``t_min <= root <= t_max``.  The quadratic itself runs in f64
+    (:func:`ops.bvh8.sphere_roots`, shared with kernel K1)."""
+    from .bvh8 import sphere_roots
+
+    root1, root2, ok = sphere_roots(
+        o[0] - center[0], o[1] - center[1], o[2] - center[2], d[0], d[1], d[2], radius
+    )
+    v1 = ok & (root1 >= t_min) & (root1 <= t_max)
+    v2 = ok & (root2 >= t_min) & (root2 <= t_max)
+    return torch.where(v1, root1, torch.where(v2, root2, INF))
+
+
+def _msphere_center(p, tm):
+    """Center lerped to the ray time (sphere.rs:124-127) as (cx, cy, cz)."""
+    frac = safe_div(tm - p[7], p[8] - p[7])
+    return (
+        p[0] + (p[4] - p[0]) * frac,
+        p[1] + (p[5] - p[1]) * frac,
+        p[2] + (p[6] - p[2]) * frac,
+    )
+
+
+def _axis_select(v, axis):
+    """Component ``axis`` (an integer tensor) of a (3, ...) vector."""
+    return torch.where(axis == 0, v[0], torch.where(axis == 1, v[1], v[2]))
+
+
+def _rect_axes(ka):
+    """Constant axis -> the two in-plane axes: XYRect ka=2 -> (x, y);
+    XZRect ka=1 -> (x, z); YZRect ka=0 -> (y, z) (aarect.rs:13-260)."""
+    a_axis = torch.where(ka == 0, 1, 0)
+    b_axis = torch.where(ka == 2, 1, 2)
+    return a_axis, b_axis
+
+
+def _rect_t(p, o, d, t_min, t_max):
+    """Axis-rect plane solve + bounds (aarect.rs:47-66 et al.)."""
+    ka = p[5].to(torch.int32)
+    a0, a1, b0, b1, k = p[0], p[1], p[2], p[3], p[4]
+    a_axis, b_axis = _rect_axes(ka)
+    ok_ = _axis_select(o, ka)
+    dk = _axis_select(d, ka)
+    t = safe_div(k - ok_, dk)
+    av = _axis_select(o, a_axis) + t * _axis_select(d, a_axis)
+    bv = _axis_select(o, b_axis) + t * _axis_select(d, b_axis)
+    valid = (
+        (dk != 0.0) & (t >= t_min) & (t <= t_max)
+        & (av >= a0) & (av <= a1) & (bv >= b0) & (bv <= b1)
+    )
+    return torch.where(valid, t, INF)
+
+
+def _tri_t(p, o, d, t_min, t_max):
+    """Plane hit + three cross-product sign tests (triangle.rs:33-63)."""
+
+    def sub(ax, ay, az, bx, by, bz):
+        return ax - bx, ay - by, az - bz
+
+    def crs(ax, ay, az, bx, by, bz):
+        return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+
+    def dt(ax, ay, az, bx, by, bz):
+        return ax * bx + ay * by + az * bz
+
+    ax, ay, az = p[0], p[1], p[2]
+    bx, by, bz = p[3], p[4], p[5]
+    cx, cy, cz = p[6], p[7], p[8]
+    ab = sub(bx, by, bz, ax, ay, az)
+    ac = sub(cx, cy, cz, ax, ay, az)
+    nx, ny, nz = crs(*ab, *ac)
+    nlen = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    inv = 1.0 / torch.where(nlen == 0.0, 1.0, nlen)
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    denom = dt(d[0], d[1], d[2], nx, ny, nz)
+    t = safe_div(dt(ax - o[0], ay - o[1], az - o[2], nx, ny, nz), denom)
+    px, py, pz = o[0] + d[0] * t, o[1] + d[1] * t, o[2] + d[2] * t
+
+    ca = sub(ax, ay, az, cx, cy, cz)  # a - c = -(c - a)
+    e0 = crs(-ca[0], -ca[1], -ca[2], px - ax, py - ay, pz - az)
+    r0 = crs(-ca[0], -ca[1], -ca[2], *ab)
+    ba = sub(ax, ay, az, bx, by, bz)
+    e1 = crs(*ba, px - bx, py - by, pz - bz)
+    r1 = crs(*ba, cx - bx, cy - by, cz - bz)
+    cb = sub(bx, by, bz, cx, cy, cz)
+    e2 = crs(*cb, px - cx, py - cy, pz - cz)
+    r2 = crs(*cb, ax - cx, ay - cy, az - cz)
+    inside = (dt(*e0, *r0) >= 0.0) & (dt(*e1, *r1) >= 0.0) & (dt(*e2, *r2) >= 0.0)
+    valid = (denom != 0.0) & (nlen != 0.0) & (t >= t_min) & (t <= t_max) & inside
+    return torch.where(valid, t, INF)
+
+
+def _ring_t(p, o, d, t_min, t_max):
+    """Flat annulus in plane y=0 (ring.rs:36-52)."""
+    t = safe_div(-o[1], d[1])
+    px = o[0] + t * d[0]
+    pz = o[2] + t * d[2]
+    dd = px * px + pz * pz
+    valid = (d[1] != 0.0) & (t >= t_min) & (t <= t_max) & (dd >= p[2]) & (dd <= p[3])
+    return torch.where(valid, t, INF)
+
+
+def _box_t(p, o, d, t_min, t_max):
+    """Axis-aligned box slab test, equal to the closest hit over the 6 face
+    rects the reference builds (boxes.rs:23-66).  d_a == 0 uses IEEE inf;
+    torch.minimum/maximum propagate NaN as jnp's do, so a ray lying on a
+    face plane misses."""
+    inv0 = 1.0 / d[0]
+    inv1 = 1.0 / d[1]
+    inv2 = 1.0 / d[2]
+    a0 = (p[0] - o[0]) * inv0
+    b0 = (p[3] - o[0]) * inv0
+    a1 = (p[1] - o[1]) * inv1
+    b1 = (p[4] - o[1]) * inv1
+    a2 = (p[2] - o[2]) * inv2
+    b2 = (p[5] - o[2]) * inv2
+    near = torch.maximum(
+        torch.maximum(torch.minimum(a0, b0), torch.minimum(a1, b1)), torch.minimum(a2, b2)
+    )
+    far = torch.minimum(
+        torch.minimum(torch.maximum(a0, b0), torch.maximum(a1, b1)), torch.maximum(a2, b2)
+    )
+    t = torch.where(near >= t_min, near, far)
+    valid = (far >= near) & (t >= t_min) & (t <= t_max)
+    return torch.where(valid, t, INF)
+
+
+def _shape_of(x):
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else ()
+
+
+def _t_for_kind(k: int, p, o, d, tm, t_min, t_max):
+    """Single-kind candidate t (``k`` a Python int)."""
+    if k == SPHERE:
+        return _sphere_t((p[0], p[1], p[2]), p[3], o, d, t_min, t_max)
+    if k == MSPHERE:
+        return _sphere_t(_msphere_center(p, tm), p[3], o, d, t_min, t_max)
+    if k == RECT:
+        return _rect_t(p, o, d, t_min, t_max)
+    if k == TRIANGLE:
+        return _tri_t(p, o, d, t_min, t_max)
+    if k == RING:
+        return _ring_t(p, o, d, t_min, t_max)
+    if k == BOX:
+        return _box_t(p, o, d, t_min, t_max)
+    # MEDIUM rows yield +inf here
+    shape = torch.broadcast_shapes(o.shape[1:], _shape_of(t_min), _shape_of(t_max))
+    return torch.full(shape, INF, dtype=o.dtype, device=o.device)
+
+
+def _t_switch(kind, p, o, d, tm, t_min, t_max, kinds=None):
+    """Masked evaluation selected by integer ``kind``; ``kinds`` lists the
+    kinds that can occur."""
+    kinds = [k for k in (kinds or (SPHERE, MSPHERE, RECT, TRIANGLE, RING, BOX)) if k != MEDIUM]
+    shape = torch.broadcast_shapes(tuple(kind.shape), o.shape[1:])
+    t = torch.full(shape, INF, dtype=o.dtype, device=o.device)
+    for k in kinds:
+        t = torch.where(kind == k, _t_for_kind(k, p, o, d, tm, t_min, t_max), t)
+    return t
+
+
+# --------------------------------------------------------------------------
+# candidate t
+# --------------------------------------------------------------------------
+
+
+def candidate_t(
+    scene: SceneData,
+    o: torch.Tensor,  # (3, N)
+    d: torch.Tensor,
+    tm: torch.Tensor,  # (N,)
+    t_min,
+    t_max,  # scalar or (N,)
+    prim_slice: Optional[slice] = None,
+) -> torch.Tensor:
+    """Candidate hit t for every (prim, ray) pair -> f32[P_slice, N].
+
+    Where the window is covered by the compiler's homogeneous
+    ``kind_ranges`` each sub-window runs exactly one formula; otherwise the
+    masked switch over the kinds present.  Inactive rows are +inf.
+    """
+    if scene.any_xform:
+        raise NotImplementedError(_XFORM_TODO)
+    lo = prim_slice.start if prim_slice is not None else 0
+    hi = prim_slice.stop if prim_slice is not None else scene.n_prims
+    tmb = tm[None, :]
+
+    windows = [
+        (k, max(s, lo), min(e, hi))
+        for (k, s, e) in scene.stats.kind_ranges
+        if max(s, lo) < min(e, hi)
+    ]
+    if sum(e - s for _, s, e in windows) != hi - lo:
+        windows = None
+
+    def eval_window(sl, kinds):
+        p = scene.params[:, sl][:, :, None]  # (16, W, 1)
+        ob = o[:, None, :]  # (3, 1, N)
+        db = d[:, None, :]
+        if len(kinds) == 1:
+            t = _t_for_kind(kinds[0], p, ob, db, tmb, t_min, t_max)
+            t = t.expand(sl.stop - sl.start, o.shape[1])
+        else:
+            t = _t_switch(scene.kind[sl][:, None], p, ob, db, tmb, t_min, t_max, kinds)
+        return torch.where(scene.active[sl][:, None], t, INF)
+
+    if windows is None:
+        return eval_window(slice(lo, hi), scene.stats.kinds_present or None)
+    parts = [eval_window(slice(s, e), (k,)) for k, s, e in windows]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+# --------------------------------------------------------------------------
+# hit details
+# --------------------------------------------------------------------------
+
+
+def _sphere_uv(n):
+    """Spherical uv from the outward unit normal (sphere.rs:30-34)."""
+    theta = torch.arccos(torch.clamp(-n[1], -1.0 + 1e-7, 1.0 - 1e-7))
+    phi = torch.atan2(-n[2], n[0]) + PI
+    return phi / (2.0 * PI), theta / PI
+
+
+def hit_details(
+    scene: SceneData,
+    o,
+    d,
+    tm,
+    t_best,
+    best,
+    hit_mask,
+    win_rows: Optional[torch.Tensor] = None,
+):
+    """Hit record of the winning primitive -> ``(Hit, Shade)``.
+
+    Without ``win_rows`` the winner's row is fetched from the scene tables.
+    ``win_rows`` (f32[NCOL, N], the kernel's winner leaf rows) supplies the
+    row of winners inside the tree region; only dense-tail winners are
+    fetched from the tables.
+    """
+    from .bvh8 import COL_FLIP, COL_KIND, COL_MAT
+
+    if scene.any_xform:
+        raise NotImplementedError(_XFORM_TODO)
+    best = best.long()
+    npar = scene.params.shape[0]
+    if win_rows is None:
+        p = scene.params[:, best]
+        kind = scene.kind[best]
+        mat = scene.mat_id[best]
+        flip = scene.flip[best]
+    else:
+        tail_lo = scene.stats.n_in_bvh
+        is_tree = best < tail_lo
+        kind_tree = torch.round(win_rows[COL_KIND]).to(torch.int32)
+        mat_tree = torch.round(win_rows[COL_MAT]).to(torch.int32)
+        flip_tree = win_rows[COL_FLIP] > 0.5
+        if tail_lo < scene.n_prims:
+            idx_t = torch.clamp(best, min=tail_lo)
+            p = torch.where(is_tree[None], win_rows[:npar], scene.params[:, idx_t])
+            kind = torch.where(is_tree, kind_tree, scene.kind[idx_t])
+            mat = torch.where(is_tree, mat_tree, scene.mat_id[idx_t])
+            flip = torch.where(is_tree, flip_tree, scene.flip[idx_t])
+        else:
+            p = win_rows[:npar]
+            kind, mat, flip = kind_tree, mat_tree, flip_tree
+    mat = mat.long()
+    shade = shade_for_mats(scene, mat)
+
+    oo, od = o, d
+    pt = oo + scale(od, t_best)
+
+    kinds = scene.stats.kinds_present or (SPHERE, MSPHERE, RECT, TRIANGLE, RING, MEDIUM, BOX)
+    zeros = torch.zeros_like(t_best)
+    ones = torch.ones_like(t_best)
+
+    outward = vec3(ones, zeros, zeros)
+    u = zeros
+    v = zeros
+    tex_u = zeros
+    tex_v = zeros
+
+    if SPHERE in kinds or MSPHERE in kinds:
+        # sphere / moving sphere (sphere.rs:58-66, 138-165)
+        c_static = vec3(p[0], p[1], p[2])
+        if MSPHERE in kinds:
+            center = torch.where(
+                (kind == MSPHERE)[None], vec3(*_msphere_center(p, tm)), c_static
+            )
+        else:
+            center = c_static
+        n_sphere = (pt - center) / torch.where(p[3] == 0.0, 1.0, p[3])[None]
+        u_sph, v_sph = _sphere_uv(n_sphere)
+        is_sph = kind <= MSPHERE
+        outward = torch.where(is_sph[None], n_sphere, outward)
+        u = torch.where(is_sph, u_sph, u)
+        v = torch.where(is_sph, v_sph, v)
+
+    if RECT in kinds:
+        # rect (aarect.rs:58-66 et al.)
+        ka = p[5].to(torch.int32)
+        a_axis, b_axis = _rect_axes(ka)
+        av = _axis_select(pt, a_axis)
+        bv = _axis_select(pt, b_axis)
+        n_rect = vec3(
+            torch.where(ka == 0, ones, zeros),
+            torch.where(ka == 1, ones, zeros),
+            torch.where(ka == 2, ones, zeros),
+        )
+        is_rect = kind == RECT
+        outward = torch.where(is_rect[None], n_rect, outward)
+        u = torch.where(is_rect, safe_div(av - p[0], p[1] - p[0]), u)
+        v = torch.where(is_rect, safe_div(bv - p[2], p[3] - p[2]), v)
+
+    if TRIANGLE in kinds:
+        # triangle (triangle.rs:51-72): flat normal + (beta, gamma) 2x2 solve
+        ta = vec3(p[0], p[1], p[2])
+        tb = vec3(p[3], p[4], p[5])
+        tc = vec3(p[6], p[7], p[8])
+        tcr = cross(tb - ta, tc - ta)
+        tlen = torch.sqrt(dot(tcr, tcr))
+        n_tri = tcr / torch.where(tlen == 0.0, 1.0, tlen)[None]
+        a1 = ta[0] - tb[0]
+        b1 = ta[0] - tc[0]
+        c1 = ta[0] - pt[0]
+        a2 = ta[1] - tb[1]
+        b2 = ta[1] - tc[1]
+        c2 = ta[1] - pt[1]
+        det = a1 * b2 - b1 * a2
+        beta = safe_div(c1 * b2 - b1 * c2, det)
+        gamma = safe_div(a1 * c2 - a2 * c1, det)
+        alpha = 1.0 - beta - gamma
+        is_tri = kind == TRIANGLE
+        outward = torch.where(is_tri[None], n_tri, outward)
+        u = torch.where(is_tri, beta, u)
+        v = torch.where(is_tri, gamma, v)
+        tex_u = torch.where(is_tri, p[9] * alpha + p[11] * beta + p[13] * gamma, tex_u)
+        tex_v = torch.where(is_tri, p[10] * alpha + p[12] * beta + p[14] * gamma, tex_v)
+
+    if RING in kinds:
+        # ring (ring.rs:48-51): +y normal, uv left at 0
+        outward = torch.where((kind == RING)[None], vec3(zeros, ones, zeros), outward)
+
+    if BOX in kinds:
+        # the winning face is the axis whose face-plane t matches t_best;
+        # an axis-parallel ray cannot hit that axis' faces
+        errs = []
+        for a in range(3):
+            t_lo = safe_div(p[a] - oo[a], od[a])
+            t_hi = safe_div(p[3 + a] - oo[a], od[a])
+            err_a = torch.minimum(torch.abs(t_best - t_lo), torch.abs(t_best - t_hi))
+            errs.append(torch.where(od[a] == 0.0, INF, err_a))
+        ka_box = torch.argmin(torch.stack(errs), dim=0).to(torch.int32)
+        a_axis, b_axis = _rect_axes(ka_box)
+        lo3 = vec3(p[0], p[1], p[2])
+        hi3 = vec3(p[3], p[4], p[5])
+        av = _axis_select(pt, a_axis)
+        bv = _axis_select(pt, b_axis)
+        a0 = _axis_select(lo3, a_axis)
+        a1 = _axis_select(hi3, a_axis)
+        b0 = _axis_select(lo3, b_axis)
+        b1 = _axis_select(hi3, b_axis)
+        n_box = vec3(
+            torch.where(ka_box == 0, ones, zeros),
+            torch.where(ka_box == 1, ones, zeros),
+            torch.where(ka_box == 2, ones, zeros),
+        )
+        is_box = kind == BOX
+        outward = torch.where(is_box[None], n_box, outward)
+        u = torch.where(is_box, safe_div(av - a0, a1 - a0), u)
+        v = torch.where(is_box, safe_div(bv - b0, b1 - b0), v)
+
+    # set_face_normal (hittable/mod.rs:49-56); mediums are always front
+    is_medium = kind == MEDIUM
+    front = (dot(od, outward) < 0.0) | is_medium
+    face_normal = torch.where(front[None], outward, -outward)
+    # FlipFace toggles front_face only (hittable/mod.rs:279-284)
+    front = front ^ flip
+
+    hit = Hit(
+        hit=hit_mask,
+        t=t_best,
+        prim=best,
+        p=pt,
+        normal=face_normal,
+        front=front,
+        u=u,
+        v=v,
+        tex_uv=torch.stack([tex_u, tex_v], dim=0),
+        mat=mat,
+    )
+    return hit, shade
+
+
+# --------------------------------------------------------------------------
+# unified closest hit
+# --------------------------------------------------------------------------
+
+
+def _dense_window_scan(scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, best):
+    """Scan a homogeneous window [s, e) in prim chunks of ``chunk`` rows,
+    folding each chunk's min into the running (t_best, best): the
+    transient stays ``(chunk, N)``.  A later chunk wins only on a strictly
+    smaller t, so ties keep the smallest prim id."""
+    ob = o[:, None, :]
+    db = d[:, None, :]
+    tmb = tm[None, :]
+    for cs in range(s, e, chunk):
+        ce = min(cs + chunk, e)
+        p = scene.params[:, cs:ce][:, :, None]
+        t_w = _t_for_kind(k, p, ob, db, tmb, t_min, t_max).expand(ce - cs, o.shape[1])
+        t_w = torch.where(scene.active[cs:ce][:, None], t_w, INF)
+        tw, bw = t_w.min(dim=0)
+        take = tw < t_best
+        t_best = torch.where(take, tw, t_best)
+        best = torch.where(take, bw + cs, best)
+    return t_best, best
+
+
+def closest_hit(scene: SceneData, o, d, tm, t_min: float, t_max: float):
+    """Closest hit over the whole scene -> ``(Hit, Shade)``.
+
+    The dense (brute-force) region first: its large occluders tighten
+    t_best, which the tree walk then takes as ``t_init`` and prunes with.
+    Then one :func:`traverse_bvh8` per tree, whose winner rows feed
+    :func:`hit_details`.
+    """
+    from .bvh8 import traverse_bvh8
+
+    if scene.any_medium:
+        raise NotImplementedError(_MEDIA_TODO)
+    if scene.any_xform:
+        raise NotImplementedError(_XFORM_TODO)
+    if len(scene.bvh8) != len(scene.clusters) or any(t8 is None for t8 in scene.bvh8):
+        raise NotImplementedError(_CLUSTER_TODO)
+    n = o.shape[1]
+    t_best = torch.full((n,), INF, dtype=o.dtype, device=o.device)
+    best = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    brute_lo = scene.stats.n_in_bvh
+
+    ranges = [r for r in scene.stats.kind_ranges if r[2] > brute_lo]
+    if not ranges and not scene.clusters and scene.n_prims > 0:
+        ranges = [(-1, 0, scene.n_prims)]  # full masked switch
+    # bound the (chunk, N) transients: eager PyTorch materializes each one
+    chunk = max(32, min(512, (16 << 20) // max(n, 1)))
+    for k, s, e in ranges:
+        s = max(s, brute_lo)
+        if k == MEDIUM:
+            continue
+        if e - s <= chunk:
+            t_w = candidate_t(scene, o, d, tm, t_min, t_max, prim_slice=slice(s, e))
+            tw, bw = t_w.min(dim=0)
+            take = tw < t_best
+            t_best = torch.where(take, tw, t_best)
+            best = torch.where(take, bw + s, best)
+        else:
+            t_best, best = _dense_window_scan(
+                scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, best
+            )
+
+    win_rows = None
+    for i, tree8 in enumerate(scene.bvh8):
+        t_i, b_i, rows_i = traverse_bvh8(
+            tree8, scene.stats.trees[i][0], o, d, tm, float(t_min),
+            t_init=t_best, return_rows=True,
+        )
+        take = (b_i >= 0) & (t_i < t_best) & (t_i <= t_max)
+        win_rows = rows_i if win_rows is None else torch.where(take[None], rows_i, win_rows)
+        t_best = torch.where(take, t_i, t_best)
+        best = torch.where(take, b_i.long(), best)
+
+    hit_mask = torch.isfinite(t_best)
+    safe_t = torch.where(hit_mask, t_best, 1.0)
+    return hit_details(scene, o, d, tm, safe_t, best, hit_mask, win_rows=win_rows)
