@@ -5,11 +5,15 @@
 Builds kernel K1 (``raytracer2022_tpu_torch/csrc/bvh8.cu``) with nvcc,
 checks it against its plain PyTorch version on every primitive kind and on
 the stand-in mesh at the main path's width, then renders through the
-port's entry points: the stand-in mesh scene through ``render_sum_n``, and
-``cornell_box`` through ``cli.main``.  Every phase that fails makes the
-script exit non-zero; nothing falls back to the CPU.  The last line of
-standard output is ``{"ok": true, "device": {...}}``; the line before the
-card's name and power limit is the kernel table as JSON.
+port's entry points: the stand-in mesh scene and a stand-in ``final_scene``
+(media, image and noise textures, a 1000-sphere cluster tree) through
+``render_sum_n``, ``cornell_box`` and every library scene that needs no
+file through ``cli.main``, the pixel-pool and quota schedules with exact
+per-pixel sample counts, the ray sort and the fixed-depth ``trace``, and
+times the cluster walk against K1 on one sphere tree.  Every phase that
+fails makes the script exit non-zero; nothing falls back to the CPU.  The
+last line of standard output is ``{"ok": true, "device": {...}}``; the
+line before the card's name and power limit is the kernel table as JSON.
 """
 
 from __future__ import annotations
@@ -73,6 +77,78 @@ def stand_in_mesh_scene(builder, nu: int = 96, nv: int = 68) -> dict:
         time0=0.0,
         time1=1.0,
     )
+
+
+def earth_stand_in(seed: int = 0, width: int = 1024, height: int = 512) -> np.ndarray:
+    """A u8[height, width, 3] image in place of ``earthmap.jpg`` (1024x512),
+    which the repository does not hold: latitude bands with seeded noise."""
+    rng = np.random.default_rng(seed)
+    lat = np.linspace(0.0, math.pi, height)[:, None, None]
+    lon = np.linspace(0.0, 2.0 * math.pi, width)[None, :, None]
+    base = 0.5 + 0.25 * np.sin(3.0 * lat + np.array([0.0, 1.0, 2.0])) * np.cos(2.0 * lon)
+    img = base + rng.normal(0.0, 0.08, (height, width, 3))
+    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def final_scene_stand_in(builder, earth: np.ndarray) -> dict:
+    """``scene/library.py::final_scene`` (book 2's final scene) call for
+    call, with ``earth`` as the earth sphere's image in place of the file:
+    400 ground boxes, two media (one inside a glass sphere), a moving
+    sphere, glass, fuzzy metal, image and noise textures, and 1000 rotated
+    and translated spheres.  Works with either package's ``SceneBuilder``,
+    whose ``rng`` draws the box heights and sphere centres.  Returns the
+    camera kwargs; the background is black."""
+    b = builder
+    rng = b.rng
+    ground = b.lambertian((0.48, 0.83, 0.53))
+    for i in range(20):
+        for j in range(20):
+            w = 100.0
+            x0 = -1000.0 + i * w
+            z0 = -1000.0 + j * w
+            y1 = rng.uniform(1.0, 101.0)
+            b.box((x0, 0.0, z0), (x0 + w, y1, z0 + w), ground)
+    light = b.rect_xz(123, 423, 147, 412, 554, b.diffuse_light((7.0, 7.0, 7.0)))
+    b.flip_face(light)
+    b.add_light(light)
+    center1 = np.array([400.0, 400.0, 200.0])
+    b.moving_sphere(center1, center1 + [25, 0, 0], 0.0, 1.0, 50, b.lambertian((0.7, 0.3, 0.1)))
+    b.sphere((260, 150, 45), 50, b.dielectric(1.5))
+    b.sphere((0, 150, 145), 50, b.metal((0.8, 0.8, 0.9), 1.0))
+    b.sphere((360, 150, 145), 70, b.dielectric(1.5))
+    shadow = b.sphere((360, 150, 145), 70, b.dielectric(1.5))
+    b.constant_medium([shadow], 0.2, (0.2, 0.4, 0.9))
+    world_boundary = b.sphere((0, 0, 0), 5000, b.dielectric(1.5))
+    b.constant_medium([world_boundary], 0.0001, (1.0, 1.0, 1.0))
+    b.sphere((400, 200, 400), 100, b.lambertian(b.image(earth)))
+    b.sphere((220, 280, 300), 80, b.lambertian(b.noise(0.1)))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    cluster = [b.sphere(rng.uniform(0, 165, 3), 10, white) for _ in range(1000)]
+    b.rotate_y(cluster, 15.0)
+    b.translate(cluster, (-100, 270, 395))
+    return dict(
+        lookfrom=(478.0, 278.0, -600.0),
+        lookat=(278.0, 278.0, 0.0),
+        vup=(0.0, 1.0, 0.0),
+        vfov=40.0,
+        aspect_ratio=1.0,
+        aperture=0.0,
+        focus_dist=10.0,
+        time0=0.0,
+        time1=1.0,
+    )
+
+
+def sphere_cluster_scene(builder, bvh8_kinds=None, device="cpu"):
+    """final_scene's 1000 spheres (radius 10, centres uniform in
+    [0, 165)^3), untransformed, alone: one SPHERE tree.  With the default
+    packet-tree policy it has no packet tree (the cluster walk); with
+    ``bvh8_kinds=(SPHERE,)`` it has one (kernel K1)."""
+    rng = np.random.default_rng(1000)
+    white = builder.lambertian((0.73, 0.73, 0.73))
+    for _ in range(1000):
+        builder.sphere(rng.uniform(0, 165, 3), 10, white)
+    return builder.finalize(bvh8_kinds=bvh8_kinds, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +232,8 @@ def random_rays(rng, n: int, lo: float, hi: float):
 T_MIN = 1e-3
 WIDTH = HEIGHT = 600
 SPP = 64
+FINAL_SPP = 32
+PIXEL_SPP_SEQ = 512  # bench.py's pixel-pool launch: 256x256 x 4 lanes x 512
 DEPTH = 50
 LANES = 1 << 18  # the main path's launch width (RenderConfig.max_rays_per_batch)
 
@@ -199,6 +277,325 @@ def _time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# ---------------------------------------------------------------------------
+# phases of this slice: final_scene, the library, schedules, sort, trace,
+# and the packet-tree policy
+# ---------------------------------------------------------------------------
+
+FILE_FREE = ["random_scene", "two_spheres", "two_perlin_spheres", "simple_light", "cornell_smoke",
+             "cornell_box_book"]
+SMALL = 96  # library renders through the CLI: 96x96 x 16 spp
+SMALL_SPP = 16
+MAX_REL = 0.08  # card-vs-CPU and render-vs-render channel means (Monte-Carlo noise)
+CPU_SEEDS = 8  # card-vs-CPU checks: CPU renders, one per seed, give the seed-to-seed spread
+CARD_FACTOR = 16  # ... and the card renders once at this many times the samples
+MAX_Z = 5.0  # card-vs-CPU bound, in standard errors of the difference of means
+EMIT = (1.5, 2.0, 2.5)
+
+
+def _means(total, n) -> np.ndarray:
+    return (total / n).mean(dim=(-2, -1)).cpu().numpy().astype(np.float64)
+
+
+def _rel(a, b) -> np.ndarray:
+    return np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+
+
+def card_vs_cpu(dev, label: str, build, cfg) -> None:
+    """Hold the card's channel means against the CPU's (plain versions) on
+    one scene: ``CPU_SEEDS`` CPU renders at ``cfg`` give a mean and a
+    seed-to-seed standard deviation; the card renders once at about
+    ``CARD_FACTOR`` times the samples.  Fails unless every channel agrees
+    within ``MAX_Z`` standard errors of the difference and within
+    ``MAX_REL``.  ``build(device)`` returns ``(scene, camera)``."""
+    import dataclasses
+
+    from raytracer2022_tpu_torch.render.renderer import render_sum_n
+
+    scene, cam = build(dev)
+    total, n_card = render_sum_n(scene, cam, dataclasses.replace(cfg, spp=cfg.spp * CARD_FACTOR))
+    m_card = _means(total, n_card)
+    scene, cam = build("cpu")
+    runs = []
+    for s in range(CPU_SEEDS):
+        total, n_cpu = render_sum_n(scene, cam, dataclasses.replace(cfg, seed=100 + s))
+        runs.append(_means(total, n_cpu))
+    m_cpu, sd = np.mean(runs, axis=0), np.std(runs, axis=0, ddof=1)
+    z = (m_card - m_cpu) / np.maximum(sd * np.sqrt(1.0 / CPU_SEEDS + n_cpu / n_card), 1e-12)
+    rel = _rel(m_card, m_cpu)
+    print(f"{label} {cfg.width}x{cfg.height}: card x {n_card} spp vs CPU {CPU_SEEDS} seeds x {n_cpu} spp, "
+          f"channel means {m_card.round(4).tolist()} vs {m_cpu.round(4).tolist()} (rel {rel.round(4).tolist()}, "
+          f"z {z.round(2).tolist()}; CPU seed-to-seed sd {(sd / m_cpu).round(4).tolist()} rel; bounds "
+          f"|z| < {MAX_Z}, rel < {MAX_REL})", flush=True)
+    assert np.isfinite(m_card).all(), f"{label}: non-finite card render"
+    assert (np.abs(z) < MAX_Z).all() and (rel < MAX_REL).all(), f"{label}: card and CPU disagree"
+
+
+def phase_final_scene(dev, smi) -> dict:
+    """The stand-in final_scene through render_sum_n at 600x600 (the
+    slice's full-width path), after a small card-vs-CPU check."""
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
+    from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+
+    earth = earth_stand_in()
+
+    def build(device):
+        b = SceneBuilder()
+        cam_kw = final_scene_stand_in(b, earth)
+        return b.finalize(device=device), make_camera(**cam_kw, device=device)
+
+    scene, cam = build(dev)
+    print(f"final_scene stand-in: {scene.n_prims} prims, trees {scene.stats.trees} "
+          f"(packet trees {[t is not None for t in scene.bvh8]}), media {len(scene.stats.mediums)}, "
+          f"textures {sorted(scene.stats.features)}, earth image {earth.shape[1]}x{earth.shape[0]}", flush=True)
+
+    card_vs_cpu(dev, "final_scene", build,
+                RenderConfig(width=32, height=32, spp=16, max_depth=DEPTH, background=(0.0, 0.0, 0.0)))
+
+    # the main path of this slice, its kernel counts read just around it
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=FINAL_SPP, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+    log: list = []
+    torch.cuda.synchronize()
+    traverse_bvh8.launches = 0
+    t0 = time.perf_counter()
+    total, n = render_sum_n(scene, cam, cfg, launch_log=log)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1 = traverse_bvh8.launches
+    img = (total / n).cpu().numpy()
+    assert img.shape == (3, HEIGHT, WIDTH) and np.isfinite(img).all(), "final_scene: non-finite pixels"
+    assert img.mean() > 1e-3, "final_scene render is black"
+    mpaths = WIDTH * HEIGHT * n / dt / 1e6
+    print(f"final_scene render {WIDTH}x{HEIGHT} x {n} spp, depth {DEPTH}: {dt:.2f} s, {mpaths:.3f} Mpaths/s, "
+          f"K1 launches {k1} (no TRIANGLE tree: the cluster walk), channel means "
+          f"{np.round(img.mean(axis=(1, 2)), 4).tolist()} ({smi})", flush=True)
+    for i, rec in enumerate(log):
+        print(f"  launch {i}: {rec}")
+    return {"mpaths": mpaths, "seconds": dt, "spp": n, "k1": k1, "log": log, "scene": scene, "cam": cam}
+
+
+def phase_library(dev, smi) -> dict:
+    """Every library scene that needs no file through cli.main, and the
+    card-vs-CPU channel means of cornell_smoke and two_perlin_spheres."""
+    import os
+    import tempfile
+    import time
+
+    from raytracer2022_tpu_torch import cli
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig
+    from raytracer2022_tpu_torch.scene.library import SCENES
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FILE_FREE:
+            path = os.path.join(tmp, f"{name}.png")
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", name, "--width", str(SMALL), "--height", str(SMALL),
+                           "--spp", str(SMALL_SPP), "--out", path, "--quiet"])
+            dt = time.perf_counter() - t0
+            assert rc == 0, f"cli {name} returned {rc}"
+            png = _read_png(path)
+            assert png.shape == (SMALL, SMALL, 3) and png.mean() > 1.0, f"cli {name}: bad image"
+            out[name] = dt
+            print(f"cli {name} {SMALL}x{SMALL} x {SMALL_SPP} spp: {dt:.2f} s wall, png mean "
+                  f"{png.mean():.2f}", flush=True)
+    for name in ("cornell_smoke", "two_perlin_spheres"):
+
+        def build(device, name=name):
+            bundle = SCENES[name](device=device)
+            return bundle.scene, make_camera(**bundle.camera_kwargs, device=device)
+
+        background = SCENES[name](device="cpu").background
+        card_vs_cpu(dev, name, build, RenderConfig(width=SMALL, height=SMALL, spp=SMALL_SPP, max_depth=DEPTH,
+                                                   background=background))
+    return out
+
+
+def _dome(builder, mirrors: bool = True):
+    """An emissive dome seen from inside, with albedo-1 mirrors: every
+    sample contributes exactly EMIT, whatever its path length."""
+    b = builder
+    dome = b.sphere((0, 0, 0), 50, b.diffuse_light(EMIT))
+    b.flip_face(dome)
+    if mirrors:
+        mirror = b.metal((1.0, 1.0, 1.0), 0.0)
+        b.rect_yz(-10, 10, -20, 0, -1, mirror)
+        b.rect_yz(-10, 10, -20, 0, 1, mirror)
+    return dict(lookfrom=(0, 0, 0), lookat=(0, 0, -1), vup=(0, 1, 0), vfov=60, aspect_ratio=1.0)
+
+
+def phase_schedules(dev, smi) -> dict:
+    """The pixel pool on cornell_box at bench.py's launch (256x256, 4 lanes
+    per pixel, 512 sequential samples) and the quota schedule on
+    random_scene at 128x128, each with an exact per-pixel count check on
+    the emissive dome at the same lane count."""
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.integrator import Schedule, TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import launch_generator, render_batch_regen
+    from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+    from raytracer2022_tpu_torch.scene.library import SCENES
+
+    out = {}
+    for sched, name, size, spp_par, spp_seq in (
+        (Schedule.PIXEL, "cornell_box", 256, 4, PIXEL_SPP_SEQ),
+        (Schedule.QUOTA, "random_scene", 128, 4, 32),
+    ):
+        b = SceneBuilder()
+        dome_cam = make_camera(**_dome(b), device=dev)
+        cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0))
+        cnt_seq = min(spp_seq, 64)
+        img, iters = render_batch_regen(b.finalize(device=dev), dome_cam, launch_generator(0, 0, dev), size, size,
+                                        spp_par, cnt_seq, cfg, return_iters=True, schedule=sched)
+        img = (img / (spp_par * cnt_seq)).cpu().numpy()
+        err = max(float(np.abs(img[c] - e).max()) for c, e in enumerate(EMIT))
+        print(f"{sched.value} schedule count check {size}x{size} x {spp_par} lanes x {cnt_seq}: every pixel "
+              f"= emission to {err:.3g} (iterations {iters})", flush=True)
+        assert err <= 1e-5 * max(EMIT), f"{sched.value}: per-pixel sample counts are not exact"
+        assert iters["drain_n4"] + iters["drain_n16"] > 0, f"{sched.value}: the drains never ran"
+
+        bundle = SCENES[name](device=dev)
+        cam = make_camera(**bundle.camera_kwargs, device=dev)
+        cfg = TraceConfig(max_depth=DEPTH, background=bundle.background)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, iters = render_batch_regen(bundle.scene, cam, launch_generator(0, 0, dev), size, size, spp_par,
+                                        spp_seq, cfg, return_iters=True, schedule=sched)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        img = (img / (spp_par * spp_seq)).cpu().numpy()
+        assert np.isfinite(img).all() and img.mean() > 1e-3, f"{name}: bad {sched.value} render"
+        mpaths = size * size * spp_par * spp_seq / dt / 1e6
+        out[sched.value] = mpaths
+        print(f"{sched.value} schedule {name} {size}x{size} x {spp_par} lanes x {spp_seq} seq, depth {DEPTH}: "
+              f"{dt:.2f} s, {mpaths:.3f} Mpaths/s, iterations {iters}, channel means "
+              f"{np.round(img.mean(axis=(1, 2)), 4).tolist()} ({smi})", flush=True)
+    return out
+
+
+def phase_sort_and_trace(dev, smi) -> None:
+    """random_scene with a tree and the ray sort against the unsorted
+    render; cornell_box through the fixed-depth trace against the
+    regeneration render."""
+    import torch
+
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import (
+        RenderConfig, launch_generator, render_batch_regen, render_sum_n,
+    )
+    from raytracer2022_tpu_torch.scene.library import SCENES, random_scene
+
+    bundle = random_scene(bvh_threshold=64, device=dev)
+    assert bundle.scene.use_bvh
+    cam = make_camera(**bundle.camera_kwargs, device=dev)
+    m = {}
+    for sort in (False, True):
+        cfg = TraceConfig(max_depth=DEPTH, background=bundle.background, sort_rays=sort)
+        img = render_batch_regen(bundle.scene, cam, launch_generator(0, 0, dev), 64, 64, 2, 16, cfg)
+        m[sort] = (img / 32).mean(dim=(1, 2)).cpu().numpy()
+    rel = _rel(m[True], m[False])
+    print(f"ray sort: random_scene (trees {bundle.scene.stats.trees}) 64x64 x 2 lanes x 16, sorted vs unsorted "
+          f"channel means {m[True].round(4).tolist()} vs {m[False].round(4).tolist()} (rel {rel.round(4).tolist()})",
+          flush=True)
+    assert np.isfinite(m[True]).all() and (rel < MAX_REL).all(), "the sorted render disagrees"
+
+    bundle = SCENES["cornell_box"](device=dev)
+    cam = make_camera(**bundle.camera_kwargs, device=dev)
+    means = {}
+    for regen in (True, False):
+        cfg = RenderConfig(width=64, height=64, spp=64, max_depth=DEPTH, background=bundle.background,
+                           regen=regen)
+        torch.cuda.synchronize()
+        means[regen] = _means(*render_sum_n(bundle.scene, cam, cfg))
+    rel = _rel(means[False], means[True])
+    print(f"fixed-depth trace: cornell_box 64x64x64, trace vs trace_regen channel means "
+          f"{means[False].round(4).tolist()} vs {means[True].round(4).tolist()} (rel {rel.round(4).tolist()})",
+          flush=True)
+    assert np.isfinite(means[False]).all() and (rel < MAX_REL).all(), "trace and trace_regen disagree"
+
+
+def phase_packet_policy(dev, smi) -> dict:
+    """The TRIANGLE-only packet-tree policy, measured: final_scene's 1000
+    spheres untransformed, walked by the cluster walk (the default policy)
+    and by K1 (``bvh8_kinds=(SPHERE,)``) on 262,144 bounce-like rays."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
+    from raytracer2022_tpu_torch.ops.intersect import traverse_clusters
+    from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+
+    s_walk = sphere_cluster_scene(SceneBuilder(), device=dev)
+    s_k1 = sphere_cluster_scene(SceneBuilder(), bvh8_kinds=(SPHERE,), device=dev)
+    assert s_walk.bvh8 == (None,) and s_k1.bvh8[0] is not None
+    rng = np.random.default_rng(77)
+    # bounce-like: origins spread through the cluster's box, random directions
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in random_rays(rng, LANES, -10.0, 175.0))
+    inf = torch.full_like(tm, float("inf"))
+    t_w, b_w = traverse_clusters(s_walk, 0, o, d, tm, T_MIN, float("inf"))
+    t_k, b_k, _ = traverse_bvh8(s_k1.bvh8[0], SPHERE, o, d, tm, T_MIN, t_init=inf, return_rows=True)
+    torch.cuda.synchronize()
+    ref = (t_w.cpu().numpy(), np.where(np.isfinite(t_w.cpu().numpy()), b_w.cpu().numpy(), -1), None)
+    rep = check_parity(SPHERE, ref, (np.where(b_k.cpu().numpy() >= 0, t_k.cpu().numpy(), np.inf),
+                                     b_k.cpu().numpy(), None))
+    walk_ms = _time_cuda(lambda: traverse_clusters(s_walk, 0, o, d, tm, T_MIN, float("inf")), 5)
+    k1_ms = _time_cuda(lambda: traverse_bvh8(s_k1.bvh8[0], SPHERE, o, d, tm, T_MIN, t_init=inf), 20)
+    print(f"packet-tree policy, 1000 spheres ({s_walk.stats.trees[0][1]} clusters of <= "
+          f"{s_walk.stats.trees[0][2]}), {LANES} bounce-like rays: cluster walk {walk_ms:.3f} ms, "
+          f"K1 {k1_ms:.4f} ms; hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal "
+          f"{rep['id_match']:.4f} ({smi})", flush=True)
+    return {"walk_ms": walk_ms, "k1_ms": k1_ms}
+
+
+SPANS = ("vertex.closest_hit", "closest_hit.dense", "closest_hit.packet_tree", "closest_hit.cluster_walk",
+         "closest_hit.media", "closest_hit.hit_details", "vertex.shading", "vertex.sampling")
+
+
+def profile_launch(label: str, run, unprofiled: dict, outdir: str) -> None:
+    """Run one launch under torch.profiler: device time by kernel, the
+    kernel time and host time inside each of the port's spans, and the
+    device busy share against the launch's unprofiled wall
+    (``unprofiled``, its launch-log record).  ``run()`` returns
+    ``(image, iterations)``."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, iters = run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="self_device_time_total", row_limit=25)
+    # kernel rows only: an operator's row repeats its kernels' device time,
+    # and a span's device-side row covers its first to last kernel, gaps
+    # included
+    busy = sum(e.self_device_time_total for e in events
+               if str(e.device_type).endswith("CUDA") and e.key not in SPANS) / 1e6
+    wall = unprofiled["seconds"]
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, f"kernels_{label}.txt"), "w") as f:
+        f.write(table)
+    print(table)
+    for e in events:
+        if e.key in SPANS and e.cpu_time_total > 0:  # the host-side row
+            print(f"span {label} {e.key}: calls {e.count}, kernel time {e.device_time_total / 1e6:.3f} s "
+                  f"({100 * e.device_time_total / 1e6 / max(busy, 1e-9):.1f}% of busy), host {e.cpu_time_total / 1e6:.3f} s "
+                  f"(profiled)", flush=True)
+    print(f"profile {label}: launch 0 ({unprofiled['lanes']} lanes, iterations {iters}): device busy "
+          f"{busy:.3f} s of {wall:.3f} s unprofiled wall ({100 * busy / wall:.1f}%)", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
     import json
@@ -211,9 +608,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--spp", type=int, default=SPP, help="samples per pixel of both renders")
+    ap.add_argument("--spp", type=int, default=SPP, help="samples per pixel of the mesh and cornell_box renders")
     ap.add_argument("--profile", default=None,
-                    help="profile one mesh launch; write its kernel table to this directory")
+                    help="profile one mesh and one final_scene launch; write their kernel tables here")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -226,7 +623,10 @@ def main(argv=None) -> int:
     from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
     from raytracer2022_tpu_torch.ops.intersect import candidate_t
     from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
-    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import (
+        MAX_SPP_SEQ, RenderConfig, launch_generator, render_batch_regen, render_sum_n,
+    )
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
     from raytracer2022_tpu_torch.scene.types import Bvh8Tree
 
@@ -313,18 +713,13 @@ def main(argv=None) -> int:
     print(f"K1 time at {LANES} rays: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms ({smi})", flush=True)
 
     # --- phase 4a: a small render, card against the CPU (plain traversal)
-    small = RenderConfig(width=32, height=32, spp=64, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
-    means = []
-    for device in ("cpu", dev):
+    def small_mesh(device):
         sb = SceneBuilder()
         stand_in_mesh_scene(sb, 24, 12)  # 576 triangles: the CPU walks it by brute force
-        tot, cnt = render_sum_n(sb.finalize(device=device), make_camera(**cam_kw, device=device), small)
-        means.append((tot / cnt).mean(dim=(1, 2)).cpu().numpy())
-    m_cpu, m_gpu = means
-    rel = np.abs(m_gpu - m_cpu) / np.maximum(m_cpu, 1e-6)
-    print(f"32x32x64 small-mesh render, card vs CPU channel means: {m_gpu.round(4).tolist()} vs "
-          f"{m_cpu.round(4).tolist()} (rel {rel.round(4).tolist()})", flush=True)
-    assert (rel < 0.08).all(), "card and CPU renders disagree beyond Monte-Carlo noise"
+        return sb.finalize(device=device), make_camera(**cam_kw, device=device)
+
+    card_vs_cpu(dev, "small-mesh render", small_mesh,
+                RenderConfig(width=32, height=32, spp=64, max_depth=DEPTH, background=(0.0, 0.0, 0.0)))
 
     # --- phase 4b: the main path, the stand-in mesh through render_sum_n
     torch.cuda.synchronize()
@@ -366,27 +761,43 @@ def main(argv=None) -> int:
           f"PNG write included), {mpaths_cli:.3f} Mpaths/s, png {png.shape} mean {png.mean():.2f} ({smi})",
           flush=True)
 
-    if args.profile:
-        # launch 0 of the mesh render again (same seed, same lanes) under
-        # torch.profiler: device time by kernel against its unprofiled wall
-        from torch.profiler import ProfilerActivity, profile
+    # --- phases 6-10: this slice's scenes, schedules and integrators
+    t_phase = time.perf_counter()
+    final = phase_final_scene(dev, smi)
+    print(f"[phase final_scene: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    phase_library(dev, smi)
+    print(f"[phase library: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    sched = phase_schedules(dev, smi)
+    print(f"[phase schedules: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    phase_sort_and_trace(dev, smi)
+    print(f"[phase sort and trace: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    policy = phase_packet_policy(dev, smi)
+    print(f"[phase packet-tree policy: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    print(json.dumps({"summary": {
+        "mesh_mpaths": mpaths_mesh, "cli_cornell_mpaths": mpaths_cli,
+        "final_scene_mpaths": final["mpaths"], "final_scene_spp": final["spp"],
+        "pixel_pool_mpaths": sched["pixel"], "quota_mpaths": sched["quota"],
+        "cluster_walk_ms": policy["walk_ms"], "k1_sphere_ms": policy["k1_ms"], "card": smi,
+    }}), flush=True)
 
-        one = RenderConfig(width=WIDTH, height=LANES // WIDTH, spp=32, max_depth=DEPTH,
-                           background=(0.0, 0.0, 0.0))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            render_sum_n(mesh, cam, one)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
-        # kernel rows only: an operator's row repeats its kernels' device time
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")) / 1e6
-        wall = launch_log[0]["seconds"]
-        os.makedirs(args.profile, exist_ok=True)
-        with open(os.path.join(args.profile, "kernels.txt"), "w") as f:
-            f.write(table)
-        print(table)
-        print(f"profile: launch 0 ({launch_log[0]['lanes']} lanes): device busy {busy:.3f} s of "
-              f"{wall:.3f} s unprofiled wall ({100 * busy / wall:.1f}%)", flush=True)
+    if args.profile:
+        # launch 0 of the mesh and of the final_scene render again under
+        # torch.profiler: the same generator, strip and samples (one lane
+        # per pixel, the first 436 rows, up to 32 sequential samples)
+        tcfg = TraceConfig(max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+        rows = LANES // WIDTH
+
+        def launch0(scene, camera, spp):
+            return render_batch_regen(scene, camera, launch_generator(0, 0, dev), WIDTH, HEIGHT, 1,
+                                      min(spp, MAX_SPP_SEQ), tcfg, rows=rows, return_iters=True)
+
+        profile_launch("mesh", lambda: launch0(mesh, cam, args.spp), launch_log[0], args.profile)
+        profile_launch("final_scene", lambda: launch0(final["scene"], final["cam"], FINAL_SPP),
+                       final["log"][0], args.profile)
 
     kernels = [{
         "name": "bvh8_traverse",
@@ -394,6 +805,7 @@ def main(argv=None) -> int:
         "source": "raytracer2022_tpu_torch/csrc/bvh8.cu",
         "replaces": "raytracer2022_tpu/ops/bvh8.py:540",
         "launches": launches,
+        "launches_by_path": {"mesh": launches, "final_scene": final["k1"]},
         "max_abs_err": max(r["max_abs_err"] for r in reports.values()),
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -5,13 +5,22 @@ same layout and names (``scene/``, ``ops/``, ``render/``, ``utils/``,
 ``cli.py``, ``native.py``).  It imports ``torch`` and never ``jax``.
 Plain tensor code is PyTorch; the JAX package's one Pallas kernel, the
 8-ary BVH walk, is hand-written CUDA C++ for Hopper (``csrc/bvh8.cu``,
-built with nvcc at first use).  Forward rendering only, for now.
+built with nvcc at first use).  Forward rendering only, for now: the
+differentiable path and multi-device rendering are not ported yet
+(ROADMAP.md, Queue 1 items 6 and 7).
 """
 
 from .render.camera import Camera, get_rays, make_camera
 from .render.film import linear_image, save_image, tonemap_u8
-from .render.integrator import Schedule, TraceConfig, trace_regen
-from .render.renderer import RenderConfig, render, render_sum, render_sum_n
+from .render.integrator import Schedule, TraceConfig, trace, trace_regen
+from .render.renderer import (
+    RenderConfig,
+    render,
+    render_batch,
+    render_batch_regen,
+    render_sum,
+    render_sum_n,
+)
 from .scene.builder import SceneBuilder
 from .scene.types import SceneData
 
@@ -26,9 +35,12 @@ __all__ = [
     "linear_image",
     "make_camera",
     "render",
+    "render_batch",
+    "render_batch_regen",
     "render_sum",
     "render_sum_n",
     "save_image",
     "tonemap_u8",
+    "trace",
     "trace_regen",
 ]

@@ -3,16 +3,19 @@
 Counterpart of ``raytracer2022_tpu/ops/intersect.py``:
 
   * ``candidate_t`` evaluates candidate hit distances for rays x prims on
-    the broadcast ``(P, N)`` grid, one formula per homogeneous kind window;
-  * ``closest_hit`` folds the dense windows first, then walks every
-    TRIANGLE tree with the 8-ary kernel (:func:`ops.bvh8.traverse_bvh8`);
+    the broadcast ``(P, N)`` grid, one formula per homogeneous kind window,
+    on object-space rays where prims carry unbaked transforms;
+  * ``traverse_clusters`` walks one cluster tree: one slab pass of every
+    ray against the cluster boxes, then rounds in which each ray visits its
+    next-nearest cluster, on the compacted lanes that can still improve;
+  * ``closest_hit`` folds the dense windows first, then every tree (the
+    8-ary kernel :func:`ops.bvh8.traverse_bvh8` where the tree has a packet
+    tree, the cluster walk otherwise), then the constant media;
   * ``hit_details`` reconstructs the hit record of the winning primitive,
-    from the kernel's winner rows for tree winners.
+    from the kernel's winner rows when every tree ran the kernel.
 
 The JAX package's one-hot MXU fetches (``ops/tables.py``) are plain
-indexing here.  Not ported yet (ROADMAP.md, port queue): constant media and
-unbaked per-primitive transforms, and the cluster walk for trees without an
-8-ary packet tree; both raise ``NotImplementedError``.
+indexing here.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..scene.types import BOX, MEDIUM, MSPHERE, RECT, RING, SPHERE, TRIANGLE, SceneData
+from ..utils.profiling import span
 from .shade import shade_for_mats
 from .vecmath import cross, dot, safe_div, scale, vec3
 
@@ -33,18 +37,8 @@ PI = math.pi
 # per-kind param-row count used by the closest-hit t formulas
 NPARAM_T = {SPHERE: 4, MSPHERE: 9, RECT: 6, TRIANGLE: 9, RING: 4, BOX: 6}
 
-_MEDIA_TODO = (
-    "constant media are not ported yet "
-    "(ROADMAP.md, port queue: 'Media and unbaked transforms')"
-)
-_XFORM_TODO = (
-    "unbaked per-primitive transforms (rotated rects/rings/boxes) are not ported yet "
-    "(ROADMAP.md, port queue: 'Media and unbaked transforms')"
-)
-_CLUSTER_TODO = (
-    "trees without an 8-ary packet tree need the cluster walk, not ported yet "
-    "(ROADMAP.md, port queue: 'The cluster walk')"
-)
+# bound on the elements of one (prims, rays) transient of the eager scans
+_SCAN_ELEMS = 16 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +225,38 @@ def _t_switch(kind, p, o, d, tm, t_min, t_max, kinds=None):
 
 
 # --------------------------------------------------------------------------
+# world -> object transforms
+# --------------------------------------------------------------------------
+
+
+def _apply_rot(rot, v):
+    """rot: (3, 3, ...); v: (3, ...) -> R @ v."""
+    return vec3(
+        rot[0, 0] * v[0] + rot[0, 1] * v[1] + rot[0, 2] * v[2],
+        rot[1, 0] * v[0] + rot[1, 1] * v[1] + rot[1, 2] * v[2],
+        rot[2, 0] * v[0] + rot[2, 1] * v[1] + rot[2, 2] * v[2],
+    )
+
+
+def _apply_rot_t(rot, v):
+    """rot: (3, 3, ...); v: (3, ...) -> R^T @ v."""
+    return vec3(
+        rot[0, 0] * v[0] + rot[1, 0] * v[1] + rot[2, 0] * v[2],
+        rot[0, 1] * v[0] + rot[1, 1] * v[1] + rot[2, 1] * v[2],
+        rot[0, 2] * v[0] + rot[1, 2] * v[1] + rot[2, 2] * v[2],
+    )
+
+
+def _xform_rays(rot, trans, inv_s, o, d):
+    """World -> object similarity: o' = R(o - t)/s, d' = R d / s.  The hit
+    parameter t is preserved (unlike the reference's Zoom quirk,
+    hittable/mod.rs:321-330)."""
+    o2 = _apply_rot(rot, o - trans) * inv_s[None]
+    d2 = _apply_rot(rot, d) * inv_s[None]
+    return o2, d2
+
+
+# --------------------------------------------------------------------------
 # candidate t
 # --------------------------------------------------------------------------
 
@@ -243,15 +269,15 @@ def candidate_t(
     t_min,
     t_max,  # scalar or (N,)
     prim_slice: Optional[slice] = None,
+    include_inactive: bool = False,
 ) -> torch.Tensor:
     """Candidate hit t for every (prim, ray) pair -> f32[P_slice, N].
 
     Where the window is covered by the compiler's homogeneous
     ``kind_ranges`` each sub-window runs exactly one formula; otherwise the
-    masked switch over the kinds present.  Inactive rows are +inf.
+    masked switch over the kinds present.  Inactive rows (medium
+    boundaries) are +inf unless ``include_inactive``.
     """
-    if scene.any_xform:
-        raise NotImplementedError(_XFORM_TODO)
     lo = prim_slice.start if prim_slice is not None else 0
     hi = prim_slice.stop if prim_slice is not None else scene.n_prims
     tmb = tm[None, :]
@@ -268,17 +294,169 @@ def candidate_t(
         p = scene.params[:, sl][:, :, None]  # (16, W, 1)
         ob = o[:, None, :]  # (3, 1, N)
         db = d[:, None, :]
+        if scene.any_xform:
+            ob, db = _xform_rays(
+                scene.xf_rot[:, :, sl, None],
+                scene.xf_trans[:, sl, None],
+                scene.xf_inv_scale[sl, None],
+                ob,
+                db,
+            )
         if len(kinds) == 1:
             t = _t_for_kind(kinds[0], p, ob, db, tmb, t_min, t_max)
             t = t.expand(sl.stop - sl.start, o.shape[1])
         else:
             t = _t_switch(scene.kind[sl][:, None], p, ob, db, tmb, t_min, t_max, kinds)
-        return torch.where(scene.active[sl][:, None], t, INF)
+        if not include_inactive:
+            t = torch.where(scene.active[sl][:, None], t, INF)
+        return t
 
     if windows is None:
         return eval_window(slice(lo, hi), scene.stats.kinds_present or None)
     parts = [eval_window(slice(s, e), (k,)) for k, s, e in windows]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+def _medium_t(scene: SceneData, med_prim: int, b_start: int, b_count: int, o, d, tm, t_min, gen):
+    """Stochastic constant-medium hit t per ray (constantmedium.rs:50-76).
+
+    Entry = closest boundary hit in (-inf, inf); exit = closest boundary hit
+    in (entry + 1e-4, inf); then an exponential free flight against the
+    density.  ``torch.rand`` draws from [0, 1): ln(0) = -inf gives an
+    infinite hit distance, a miss, as the reference's ``rnd.log(E)`` on
+    (0, 1) would.
+    """
+    bsl = slice(b_start, b_start + b_count)
+    t_entry = candidate_t(
+        scene, o, d, tm, -INF, INF, prim_slice=bsl, include_inactive=True
+    ).amin(dim=0)
+    t_exit = candidate_t(
+        scene, o, d, tm, t_entry + 1e-4, INF, prim_slice=bsl, include_inactive=True
+    ).amin(dim=0)
+    has_both = torch.isfinite(t_entry) & torch.isfinite(t_exit)
+
+    neg_inv_density = scene.params[0, med_prim]
+    rec1 = torch.clamp(torch.where(has_both, t_entry, 0.0), min=t_min)
+    rec2 = torch.where(has_both, t_exit, 0.0)
+    ok_span = rec1 < rec2
+    rec1 = torch.clamp(rec1, min=0.0)
+    ray_len = torch.sqrt(dot(d, d))
+    dist_inside = (rec2 - rec1) * ray_len
+    u = torch.rand(rec1.shape, generator=gen, device=rec1.device)
+    hit_distance = neg_inv_density * torch.log(u)
+    ok = has_both & ok_span & (hit_distance <= dist_inside)
+    t = rec1 + hit_distance / ray_len
+    return torch.where(ok, t, INF)
+
+
+# --------------------------------------------------------------------------
+# cluster walk
+# --------------------------------------------------------------------------
+
+
+def traverse_clusters(
+    scene: SceneData,
+    tree_idx: int,
+    o,
+    d,
+    tm,
+    t_min: float,
+    t_max,  # scalar or (N,)
+    t_init: Optional[torch.Tensor] = None,
+):
+    """Closest hit over one cluster tree -> (t f32[N], best i64[N]).
+
+    The JAX package visits clusters per 64-lane block, front to back, and
+    fetches each cluster's packed columns with a one-hot MXU product.  Here
+    every ray visits its own clusters front to back:
+
+      1. one slab pass of all rays against the C cluster boxes gives each
+         ray's entry distance per cluster, sorted per ray;
+      2. round ``k`` takes the lanes whose ``k``-th nearest cluster starts
+         before their closest hit so far, compacts them, gathers each lane's
+         cluster columns from ``ClusterTree.pack`` (prim params and, for
+         transformed trees, per-prim transforms), tests the cluster's ``m``
+         prims in chunks and folds the result.  Slot ``j`` holds prim
+         ``start + min(j, count - 1)`` (padding repeats the last prim).
+
+    Rounds end when no lane can improve, after at most C rounds: one host
+    synchronisation (the compaction) per round.  ``t_init`` (the closest
+    hit so far) prunes; where nothing beats it, ``t`` is ``t_init`` and
+    ``best`` is 0, as where nothing is hit at all.
+    """
+    ct = scene.clusters[tree_idx]
+    kind, n_clusters, m, npar, has_xf = scene.stats.trees[tree_idx]
+    n = o.shape[1]
+    dev = o.device
+    t_cap = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+    if t_init is None:
+        t_best = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    else:
+        t_best = t_init.clone()
+    best = torch.zeros((n,), dtype=torch.int64, device=dev)
+    if n == 0:
+        return t_best, best
+
+    # 1. entry distance per (cluster, ray) (slab test, aabb.rs:15-32); IEEE
+    # inf on zero direction components; NaN (0 * inf) rejects the box
+    inv_d = 1.0 / d
+    near = far = None
+    for a in range(3):
+        t0 = (ct.bmin[a][:, None] - o[a][None]) * inv_d[a][None]
+        t1 = (ct.bmax[a][:, None] - o[a][None]) * inv_d[a][None]
+        lo_a, hi_a = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = lo_a if near is None else torch.maximum(near, lo_a)
+        far = hi_a if far is None else torch.minimum(far, hi_a)
+    near = torch.clamp(near, min=t_min)
+    far = torch.minimum(far, t_cap[None])
+    entry = torch.where(far >= near, near, INF)  # (C, N)
+    es, order = torch.sort(entry, dim=0)
+
+    params = ct.pack[2 : 2 + npar * m].view(npar, m, n_clusters)
+    if has_xf:
+        base = 2 + npar * m
+        rot_all = ct.pack[base : base + 9 * m].view(3, 3, m, n_clusters)
+        trans_all = ct.pack[base + 9 * m : base + 12 * m].view(3, m, n_clusters)
+        inv_s_all = ct.pack[base + 12 * m : base + 13 * m]  # (m, C)
+
+    # 2. rounds: every lane's k-th nearest cluster
+    for k in range(n_clusters):
+        # es is sorted per lane and t_best only falls: once no lane can
+        # improve in round k, none can in a later round
+        idx = torch.nonzero(es[k] < t_best).squeeze(1)
+        n_k = idx.shape[0]
+        if n_k == 0:
+            break
+        c = order[k, idx]
+        ol, dl, tml = o[:, idx][:, None], d[:, idx][:, None], tm[idx][None]
+        tb = t_best[idx]
+        cur_max = torch.minimum(tb, t_cap[idx])[None]
+        start = ct.pack[0, c].long()
+        count = ct.pack[1, c].long()
+        mc = max(1, min(m, _SCAN_ELEMS // (2 * n_k)))
+        tw = torch.full((n_k,), INF, dtype=torch.float32, device=dev)
+        am = torch.zeros((n_k,), dtype=torch.int64, device=dev)
+        for js in range(0, m, mc):
+            je = min(js + mc, m)
+            p = params[:, js:je][:, :, c]  # (npar, mc, n_k)
+            oo, dd = ol, dl
+            if has_xf:
+                oo, dd = _xform_rays(
+                    rot_all[:, :, js:je][:, :, :, c],
+                    trans_all[:, js:je][:, :, c],
+                    inv_s_all[js:je][:, c],
+                    ol,
+                    dl,
+                )
+            t_j = _t_for_kind(kind, p, oo, dd, tml, t_min, cur_max)
+            tw_c, am_c = t_j.min(dim=0)
+            take = tw_c < tw  # ties keep the lower slot, like an argmin
+            tw = torch.where(take, tw_c, tw)
+            am = torch.where(take, am_c + js, am)
+        upd = tw < tb
+        t_best[idx] = torch.where(upd, tw, tb)
+        best[idx] = torch.where(upd, start + torch.minimum(am, count - 1), best[idx])
+    return t_best, best
 
 
 # --------------------------------------------------------------------------
@@ -293,6 +471,16 @@ def _sphere_uv(n):
     return phi / (2.0 * PI), theta / PI
 
 
+def _identity_xform(n: int, device):
+    """Identity transforms of ``n`` lanes -> (rot (3,3,N), trans (3,N), inv_s (N,))."""
+    eye = torch.eye(3, dtype=torch.float32, device=device)[:, :, None].expand(3, 3, n)
+    return (
+        eye,
+        torch.zeros((3, n), dtype=torch.float32, device=device),
+        torch.ones((n,), dtype=torch.float32, device=device),
+    )
+
+
 def hit_details(
     scene: SceneData,
     o,
@@ -305,22 +493,28 @@ def hit_details(
 ):
     """Hit record of the winning primitive -> ``(Hit, Shade)``.
 
-    Without ``win_rows`` the winner's row is fetched from the scene tables.
-    ``win_rows`` (f32[NCOL, N], the kernel's winner leaf rows) supplies the
-    row of winners inside the tree region; only dense-tail winners are
-    fetched from the tables.
+    Without ``win_rows`` the winner's row (and transform) is fetched from
+    the scene tables.  ``win_rows`` (f32[NCOL, N], the kernel's winner leaf
+    rows) supplies the row of winners inside the tree region, whose
+    transforms are the identity (packet trees hold untransformed prims
+    only); only dense-tail winners are fetched from the tables.  Normals
+    and uvs are computed on object-space rays, then p and the normal go
+    back to world space.
     """
     from .bvh8 import COL_FLIP, COL_KIND, COL_MAT
 
-    if scene.any_xform:
-        raise NotImplementedError(_XFORM_TODO)
     best = best.long()
     npar = scene.params.shape[0]
+    xf = scene.any_xform
     if win_rows is None:
         p = scene.params[:, best]
         kind = scene.kind[best]
         mat = scene.mat_id[best]
         flip = scene.flip[best]
+        if xf:
+            rot = scene.xf_rot[:, :, best]
+            trans = scene.xf_trans[:, best]
+            inv_s = scene.xf_inv_scale[best]
     else:
         tail_lo = scene.stats.n_in_bvh
         is_tree = best < tail_lo
@@ -333,14 +527,24 @@ def hit_details(
             kind = torch.where(is_tree, kind_tree, scene.kind[idx_t])
             mat = torch.where(is_tree, mat_tree, scene.mat_id[idx_t])
             flip = torch.where(is_tree, flip_tree, scene.flip[idx_t])
+            if xf:
+                rot_i, trans_i, inv_s_i = _identity_xform(best.shape[0], best.device)
+                rot = torch.where(is_tree[None, None], rot_i, scene.xf_rot[:, :, idx_t])
+                trans = torch.where(is_tree[None], trans_i, scene.xf_trans[:, idx_t])
+                inv_s = torch.where(is_tree, inv_s_i, scene.xf_inv_scale[idx_t])
         else:
             p = win_rows[:npar]
             kind, mat, flip = kind_tree, mat_tree, flip_tree
+            if xf:
+                rot, trans, inv_s = _identity_xform(best.shape[0], best.device)
     mat = mat.long()
     shade = shade_for_mats(scene, mat)
 
-    oo, od = o, d
-    pt = oo + scale(od, t_best)
+    if xf:
+        oo, od = _xform_rays(rot, trans, inv_s, o, d)
+    else:
+        oo, od = o, d
+    pt = oo + scale(od, t_best)  # object-space hit point
 
     kinds = scene.stats.kinds_present or (SPHERE, MSPHERE, RECT, TRIANGLE, RING, MEDIUM, BOX)
     zeros = torch.zeros_like(t_best)
@@ -442,10 +646,21 @@ def hit_details(
         u = torch.where(is_box, safe_div(av - a0, a1 - a0), u)
         v = torch.where(is_box, safe_div(bv - b0, b1 - b0), v)
 
-    # set_face_normal (hittable/mod.rs:49-56); mediums are always front
+    # set_face_normal in the object frame (hittable/mod.rs:49-56); for a
+    # similarity transform the sign agrees with the world frame.  Mediums
+    # are always front (constantmedium.rs:69-76)
     is_medium = kind == MEDIUM
     front = (dot(od, outward) < 0.0) | is_medium
     face_normal = torch.where(front[None], outward, -outward)
+
+    # back to world space: n_w = R^T n_obj, p_w = R^T (p_obj * s) + trans
+    if xf:
+        p_world = _apply_rot_t(rot, pt * (1.0 / inv_s)[None]) + trans
+        n_world = _apply_rot_t(rot, face_normal)
+    else:
+        p_world = pt
+        n_world = face_normal
+
     # FlipFace toggles front_face only (hittable/mod.rs:279-284)
     front = front ^ flip
 
@@ -453,8 +668,8 @@ def hit_details(
         hit=hit_mask,
         t=t_best,
         prim=best,
-        p=pt,
-        normal=face_normal,
+        p=p_world,
+        normal=n_world,
         front=front,
         u=u,
         v=v,
@@ -480,7 +695,16 @@ def _dense_window_scan(scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, be
     for cs in range(s, e, chunk):
         ce = min(cs + chunk, e)
         p = scene.params[:, cs:ce][:, :, None]
-        t_w = _t_for_kind(k, p, ob, db, tmb, t_min, t_max).expand(ce - cs, o.shape[1])
+        oo, dd = ob, db
+        if scene.any_xform:
+            oo, dd = _xform_rays(
+                scene.xf_rot[:, :, cs:ce, None],
+                scene.xf_trans[:, cs:ce, None],
+                scene.xf_inv_scale[cs:ce, None],
+                ob,
+                db,
+            )
+        t_w = _t_for_kind(k, p, oo, dd, tmb, t_min, t_max).expand(ce - cs, o.shape[1])
         t_w = torch.where(scene.active[cs:ce][:, None], t_w, INF)
         tw, bw = t_w.min(dim=0)
         take = tw < t_best
@@ -489,22 +713,28 @@ def _dense_window_scan(scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, be
     return t_best, best
 
 
-def closest_hit(scene: SceneData, o, d, tm, t_min: float, t_max: float):
+def closest_hit(
+    scene: SceneData,
+    o,
+    d,
+    tm,
+    t_min: float,
+    t_max: float,
+    gen: Optional[torch.Generator] = None,
+):
     """Closest hit over the whole scene -> ``(Hit, Shade)``.
 
     The dense (brute-force) region first: its large occluders tighten
-    t_best, which the tree walk then takes as ``t_init`` and prunes with.
-    Then one :func:`traverse_bvh8` per tree, whose winner rows feed
-    :func:`hit_details`.
+    t_best, which the tree walks then take as their starting bound.  Each
+    tree with an 8-ary packet tree runs :func:`traverse_bvh8` (kernel K1
+    on the card); every other tree (transformed, or of a kind without a
+    packet tree) runs :func:`traverse_clusters`.  The kernel's winner rows
+    feed :func:`hit_details` only when every tree ran the kernel; otherwise
+    the winners are fetched from the tables.  Constant media come last;
+    their free flights draw from ``gen`` (the default generator if None).
     """
     from .bvh8 import traverse_bvh8
 
-    if scene.any_medium:
-        raise NotImplementedError(_MEDIA_TODO)
-    if scene.any_xform:
-        raise NotImplementedError(_XFORM_TODO)
-    if len(scene.bvh8) != len(scene.clusters) or any(t8 is None for t8 in scene.bvh8):
-        raise NotImplementedError(_CLUSTER_TODO)
     n = o.shape[1]
     t_best = torch.full((n,), INF, dtype=o.dtype, device=o.device)
     best = torch.zeros((n,), dtype=torch.int64, device=o.device)
@@ -514,33 +744,57 @@ def closest_hit(scene: SceneData, o, d, tm, t_min: float, t_max: float):
     if not ranges and not scene.clusters and scene.n_prims > 0:
         ranges = [(-1, 0, scene.n_prims)]  # full masked switch
     # bound the (chunk, N) transients: eager PyTorch materializes each one
-    chunk = max(32, min(512, (16 << 20) // max(n, 1)))
-    for k, s, e in ranges:
-        s = max(s, brute_lo)
-        if k == MEDIUM:
-            continue
-        if e - s <= chunk:
-            t_w = candidate_t(scene, o, d, tm, t_min, t_max, prim_slice=slice(s, e))
-            tw, bw = t_w.min(dim=0)
-            take = tw < t_best
-            t_best = torch.where(take, tw, t_best)
-            best = torch.where(take, bw + s, best)
-        else:
-            t_best, best = _dense_window_scan(
-                scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, best
-            )
+    chunk = max(32, min(512, _SCAN_ELEMS // max(n, 1)))
+    with span("closest_hit.dense"):
+        for k, s, e in ranges:
+            s = max(s, brute_lo)
+            if k == MEDIUM:
+                continue
+            if e - s <= chunk:
+                t_w = candidate_t(scene, o, d, tm, t_min, t_max, prim_slice=slice(s, e))
+                tw, bw = t_w.min(dim=0)
+                take = tw < t_best
+                t_best = torch.where(take, tw, t_best)
+                best = torch.where(take, bw + s, best)
+            else:
+                t_best, best = _dense_window_scan(
+                    scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, best
+                )
 
+    # winner rows only when every tree has a packet tree (JAX l. 979-984)
+    want_rows = (
+        len(scene.clusters) > 0
+        and len(scene.bvh8) == len(scene.clusters)
+        and all(t8 is not None for t8 in scene.bvh8)
+    )
     win_rows = None
-    for i, tree8 in enumerate(scene.bvh8):
-        t_i, b_i, rows_i = traverse_bvh8(
-            tree8, scene.stats.trees[i][0], o, d, tm, float(t_min),
-            t_init=t_best, return_rows=True,
-        )
-        take = (b_i >= 0) & (t_i < t_best) & (t_i <= t_max)
-        win_rows = rows_i if win_rows is None else torch.where(take[None], rows_i, win_rows)
+    for i in range(len(scene.clusters)):
+        tree8 = scene.bvh8[i] if i < len(scene.bvh8) else None
+        if tree8 is not None:
+            with span("closest_hit.packet_tree"):
+                out = traverse_bvh8(
+                    tree8, scene.stats.trees[i][0], o, d, tm, float(t_min),
+                    t_init=t_best, return_rows=want_rows,
+                )
+            t_i, b_i = out[0], out[1]
+            take = (b_i >= 0) & (t_i < t_best) & (t_i <= t_max)
+            if want_rows:
+                win_rows = out[2] if win_rows is None else torch.where(take[None], out[2], win_rows)
+        else:
+            with span("closest_hit.cluster_walk"):
+                t_i, b_i = traverse_clusters(scene, i, o, d, tm, t_min, t_max, t_init=t_best)
+            take = t_i < t_best
         t_best = torch.where(take, t_i, t_best)
         best = torch.where(take, b_i.long(), best)
 
+    with span("closest_hit.media"):
+        for med_prim, b_start, b_count in scene.stats.mediums:
+            tmed = _medium_t(scene, med_prim, b_start, b_count, o, d, tm, t_min, gen)
+            take = (tmed <= t_max) & (tmed < t_best)
+            t_best = torch.where(take, tmed, t_best)
+            best = torch.where(take, med_prim, best)
+
     hit_mask = torch.isfinite(t_best)
     safe_t = torch.where(hit_mask, t_best, 1.0)
-    return hit_details(scene, o, d, tm, safe_t, best, hit_mask, win_rows=win_rows)
+    with span("closest_hit.hit_details"):
+        return hit_details(scene, o, d, tm, safe_t, best, hit_mask, win_rows=win_rows)

@@ -3,9 +3,8 @@
 Counterpart of ``raytracer2022_tpu/ops/materials.py`` (reference
 raytracer/src/material/mod.rs:15-231): one masked pass over the four
 surface materials (lambertian, metal, dielectric, diffuse light), switching
-on the integer material kind.  The isotropic phase function belongs to
-constant media, which wait (ROADMAP.md, port queue: 'Media and unbaked
-transforms').
+on the integer material kind, plus the isotropic phase function of
+constant media (material/mod.rs:207-213).
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ class Scatter:
     """SoA ScatterRecord (reference material/mod.rs:217-231)."""
 
     has_scatter: torch.Tensor  # bool[N]: False for DiffuseLight (absorbs)
-    is_specular: torch.Tensor  # bool[N]: metal/dielectric
+    is_specular: torch.Tensor  # bool[N]: metal/dielectric/isotropic
     spec_dir: torch.Tensor  # f32[3, N]
     spec_time: torch.Tensor  # f32[N]
     attenuation: torch.Tensor  # f32[3, N]
@@ -48,7 +47,7 @@ def emitted(shade, hit, tex_val: torch.Tensor) -> torch.Tensor:
 
 
 def scatter(shade, hit, tex_val, d_in, tm, gen: torch.Generator) -> Scatter:
-    """One masked pass implementing the four surface scatter functions."""
+    """One masked pass implementing all five scatter functions."""
     kind = shade.mat_kind
     param = shade.mat_param
     n = hit.normal
@@ -74,12 +73,17 @@ def scatter(shade, hit, tex_val, d_in, tm, gen: torch.Generator) -> Scatter:
         do_reflect[None], reflect(unit_d, n), refract(unit_d, n, refraction_ratio)
     )
 
+    # Isotropic (material/mod.rs:207-213): a uniform direction in the ball
+    iso_dir = uniform_in_unit_sphere(gen, shape)
+
     is_metal = kind == METAL
     is_diel = kind == DIELECTRIC
     return Scatter(
         has_scatter=kind != DIFFUSE_LIGHT,
         is_specular=is_metal | is_diel | (kind == ISOTROPIC),
-        spec_dir=torch.where(is_metal[None], metal_dir, diel_dir),
+        spec_dir=torch.where(
+            is_metal[None], metal_dir, torch.where(is_diel[None], diel_dir, iso_dir)
+        ),
         spec_time=torch.where(is_metal, 0.0, tm),
         # Dielectric attenuation is (1,1,1) (mod.rs:144)
         attenuation=torch.where(is_diel[None], 1.0, tex_val),

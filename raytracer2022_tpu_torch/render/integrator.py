@@ -5,20 +5,20 @@ Counterpart of ``raytracer2022_tpu/render/integrator.py`` (reference
 hit -> emitted -> scatter -> mixture-PDF sample -> throughput/radiance
 update; the vertex math (:func:`_eval_vertex`) is the JAX package's.
 
-:func:`trace_regen` runs the global sample pool with its N/4 -> N/16 narrow
-drain, the schedule the renderer uses for every launch (launches hold at
-most 32 sequential samples, and the JAX package picks the global pool for
-``spp_seq <= 32``).  Each ``while`` condition reads one or two counts on the
-host, so every iteration costs one device synchronisation.  The pixel-pool
-and quota schedules and the ray sort are not ported yet (ROADMAP.md, port
-queue: 'Pixel-pool and quota schedules, and the ray sort').
+:func:`trace` is the fixed-depth bounce loop (``max_depth`` full-width
+vertices, no host synchronisation).  :func:`trace_regen` is the path
+regeneration wavefront with three schedules (:class:`Schedule`): the
+global sample pool, the pixel pool and per-lane quotas, each finished by
+N/4 -> N/16 narrow drains, and an optional per-bounce ray sort.  Each of
+its ``while`` conditions reads one or two counts on the host, so every
+iteration costs one device synchronisation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,13 +26,10 @@ from ..ops.intersect import closest_hit
 from ..ops.lights import lights_pdf, sample_lights
 from ..ops.materials import emitted, scatter, scattering_pdf_lambertian, texture_value
 from ..ops.sampling import cos_pdf_value, cosine_about_normal, uniform
+from ..ops.sort import ray_sort_key, sort_by_key
 from ..ops.vecmath import dot, scale, to_unit, vec3
 from ..scene.types import ISOTROPIC, LAMBERTIAN, SceneData
-
-_SCHEDULES_TODO = (
-    "not ported yet (ROADMAP.md, port queue: 'Pixel-pool and quota schedules, "
-    "and the ray sort')"
-)
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +38,7 @@ class TraceConfig:
     background: Optional[tuple] = (0.0, 0.0, 0.0)  # None => book1/2 sky gradient
     t_min: float = 1e-3
     spawn_eps: float = 1e-4  # relative origin offset (f32 robustness); 0 = off
-    sort_rays: bool = False  # per-bounce coherence sort (not ported yet)
+    sort_rays: bool = False  # per-bounce coherence sort (ops/sort.py), quota schedule
 
 
 class Schedule(enum.Enum):
@@ -103,24 +100,27 @@ def _eval_vertex(
     o = torch.where(alive[None], o, 1e6)
     d = torch.where(alive[None], d, 1.0)
 
-    hit, shade = closest_hit(scene, o, d, tm, cfg.t_min, float("inf"))
-    tex_val = texture_value(scene.textures, shade, hit, scene.stats.features)
-    em = emitted(shade, hit, tex_val)
-    sc = scatter(shade, hit, tex_val, d, tm, gen)
+    with span("vertex.closest_hit"):
+        hit, shade = closest_hit(scene, o, d, tm, cfg.t_min, float("inf"), gen)
+    with span("vertex.shading"):
+        tex_val = texture_value(scene.textures, shade, hit, scene.stats.features)
+        em = emitted(shade, hit, tex_val)
+        sc = scatter(shade, hit, tex_val, d, tm, gen)
 
     # diffuse branch: 50/50 mixture of light and cosine (main.rs:263-266)
-    cos_dir = cosine_about_normal(gen, hit.normal)
-    if has_lights:
-        light_dir = sample_lights(scene, hit.p, gen)
-        pick_light = uniform(gen, (n,)) < 0.5
-        new_dir = torch.where(pick_light[None], light_dir, cos_dir)
-        pdf_val = 0.5 * lights_pdf(scene, hit.p, new_dir, tm) + 0.5 * cos_pdf_value(
-            new_dir, to_unit(hit.normal)
-        )
-    else:
-        # lightless scenes: pure cosine importance sampling
-        new_dir = cos_dir
-        pdf_val = cos_pdf_value(new_dir, to_unit(hit.normal))
+    with span("vertex.sampling"):
+        cos_dir = cosine_about_normal(gen, hit.normal)
+        if has_lights:
+            light_dir = sample_lights(scene, hit.p, gen)
+            pick_light = uniform(gen, (n,)) < 0.5
+            new_dir = torch.where(pick_light[None], light_dir, cos_dir)
+            pdf_val = 0.5 * lights_pdf(scene, hit.p, new_dir, tm) + 0.5 * cos_pdf_value(
+                new_dir, to_unit(hit.normal)
+            )
+        else:
+            # lightless scenes: pure cosine importance sampling
+            new_dir = cos_dir
+            pdf_val = cos_pdf_value(new_dir, to_unit(hit.normal))
 
     spdf = scattering_pdf_lambertian(hit.normal, new_dir)
     lamb = shade.mat_kind == LAMBERTIAN
@@ -163,72 +163,234 @@ def _eval_vertex(
     )
 
 
-class _Drain(NamedTuple):
-    """Lanes of a narrow drain stage: each finishes its in-flight sample."""
-
-    o: torch.Tensor
-    d: torch.Tensor
-    tm: torch.Tensor
-    th: torch.Tensor
-    sr: torch.Tensor  # in-flight sample radiance
-    alive: torch.Tensor
-    depth: torch.Tensor
-
-    def take(self, idx: torch.Tensor) -> "_Drain":
-        return _Drain(*(x[..., idx] for x in self))
-
-
-def _drain(scene, cfg, gen, lanes: _Drain, j: int, more: Callable[[int], bool]):
-    """Bounce ``lanes`` (no regeneration) while ``j < max_depth + 1`` and
-    ``more(alive_count)``; -> (lanes, j)."""
-    while j < cfg.max_depth + 1 and more(int(lanes.alive.sum())):
-        o, d, tm, th, sr, alive, dp = lanes
-        vx = _eval_vertex(scene, cfg, o, d, tm, th, alive, gen)
-        dp = dp + 1
-        cont = vx.cont & (dp < cfg.max_depth)
-        lanes = _Drain(
-            o=torch.where(cont[None], vx.o, o),
-            d=torch.where(cont[None], vx.d, d),
-            tm=torch.where(cont, vx.tm, tm),
-            th=torch.where(cont[None], vx.throughput, th),
-            sr=sr + vx.radiance_add,  # masked by `alive`
-            alive=cont,
-            depth=dp,
-        )
-        j += 1
-    return lanes, j
-
-
 def _first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the lanes where ``mask`` holds first, in lane order,
     padded with the others: a stable compaction to width ``k``."""
     return torch.sort((~mask).to(torch.uint8), stable=True).indices[:k]
 
 
-def trace_regen(
-    scene: SceneData,
-    gen_rays,  # (gen, pix i64[N]) -> (o (3,N), d (3,N), tm (N,))
-    pix0: torch.Tensor,  # i64[N] lane -> pixel (lane l serves pixel l % n_pix)
-    spp_seq: int,  # samples per lane
-    gen: torch.Generator,
-    cfg: TraceConfig,
-    spp_par: Optional[int] = None,  # lanes per pixel
-    schedule: Optional[Schedule] = None,  # None: choose_schedule
-    return_iters: bool = False,
-):
-    """Path-regeneration wavefront -> per-lane radiance SUM (3, N); lane l
-    carries pixel ``l % n_pix`` and the lanes of one pixel sum to that
-    pixel's ``spp_par * spp_seq`` samples.
+def trace(scene: SceneData, o, d, tm, gen: torch.Generator, cfg: TraceConfig) -> torch.Tensor:
+    """Trace a wavefront to completion -> radiance (3, N).
 
-    **Global sample pool**: the launch shares one pool of ``N * spp_seq``
-    samples; sample ``m`` targets pixel ``m % n_pix``.  A lane that finishes
-    (or idles) reserves the next undone sample by an exclusive cumsum over
-    the wavefront.  A finished sample's radiance is written at
-    ``(slot, lane)``, where ``slot`` is the lane's completed-sample count,
-    and the sample's pixel is recorded at the same place; one
-    ``index_add_`` regroups everything by pixel at the end.  With
-    ``s_max > spp_seq`` slots the pool drains before any lane could cap
-    out, so every pixel gets exactly ``spp_par * spp_seq`` samples.
+    The fixed-depth loop of the JAX package's ``trace``: ``max_depth``
+    vertices, every one at full wavefront width, with dead lanes masked.
+    Its trip count is fixed, so it never reads a count on the host.  For
+    forward renders :func:`trace_regen` is faster.
+    """
+    n = tm.shape[0]
+    throughput = torch.ones((3, n), dtype=torch.float32, device=o.device)
+    radiance = torch.zeros((3, n), dtype=torch.float32, device=o.device)
+    alive = torch.ones((n,), dtype=torch.bool, device=o.device)
+    for _ in range(cfg.max_depth):
+        vx = _eval_vertex(scene, cfg, o, d, tm, throughput, alive, gen)
+        radiance = radiance + vx.radiance_add  # masked by `alive`
+        cont = vx.cont
+        o = torch.where(cont[None], vx.o, o)
+        d = torch.where(cont[None], vx.d, d)
+        tm = torch.where(cont, vx.tm, tm)
+        throughput = torch.where(cont[None], vx.throughput, throughput)
+        alive = cont
+    return radiance
+
+
+def _pool_reserve(want: torch.Tensor, remaining: torch.Tensor, spp_par: int):
+    """Grant pixel-pool samples to the lanes that want one.
+
+    Lanes are pixel-strided (lane l serves pixel l % n_pix), so the
+    ``(spp_par, n_pix)`` view has one column per pixel; an exclusive cumsum
+    down each column ranks the pixel's requesters and the first
+    ``remaining[pixel]`` of them are granted.  -> (start bool[N], remaining').
+    """
+    wantm = want.reshape(spp_par, -1)
+    wanti = wantm.to(remaining.dtype)
+    rank = torch.cumsum(wanti, dim=0) - wanti  # exclusive rank within the pixel
+    startm = wantm & (rank < remaining[None])
+    remaining = remaining - startm.sum(dim=0)
+    return startm.reshape(-1), remaining
+
+
+class _Lanes(NamedTuple):
+    """Per-lane state of the pixel-pool and quota schedules and of the
+    narrow drains."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    tm: torch.Tensor
+    th: torch.Tensor
+    rad: torch.Tensor  # radiance sum of the lane's finished and in-flight samples
+    need: torch.Tensor  # samples the lane still owes after its in-flight one
+    alive: torch.Tensor  # a sample is in flight
+    depth: torch.Tensor
+    pix: torch.Tensor  # the lane's pixel
+
+    def take(self, idx: torch.Tensor) -> "_Lanes":
+        return _Lanes(*(x[..., idx] for x in self))
+
+
+def _regen_step(scene, cfg, gen, gen_rays, lanes: _Lanes, reserve=None):
+    """One vertex of every live lane, then regeneration: a lane whose sample
+    finished starts a new one where it still owes samples (``need``), or,
+    with ``reserve`` (the pixel pool's phase A), where ``reserve(want)``
+    grants one.  With ``gen_rays`` None the lanes owe nothing (the global
+    pool's drains): no lane starts a sample and no ray is generated."""
+    o, d, tm, th, rad, need, alive, depth, pix = lanes
+    vx = _eval_vertex(scene, cfg, o, d, tm, th, alive, gen)
+    rad = rad + vx.radiance_add  # masked by `alive`
+    depth = depth + 1
+    cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
+    if gen_rays is None:
+        return lanes._replace(
+            o=torch.where(cont[None], vx.o, o),
+            d=torch.where(cont[None], vx.d, d),
+            tm=torch.where(cont, vx.tm, tm),
+            th=torch.where(cont[None], vx.throughput, th),
+            rad=rad,
+            alive=cont,
+            depth=depth,
+        )
+    finished = alive & ~cont
+    if reserve is None:
+        start = finished & (need > 0)
+        need = need - start.to(need.dtype)
+    else:
+        start = reserve(finished | ~alive)
+    o_new, d_new, tm_new = gen_rays(gen, pix)
+    return _Lanes(
+        o=torch.where(start[None], o_new, torch.where(cont[None], vx.o, o)),
+        d=torch.where(start[None], d_new, torch.where(cont[None], vx.d, d)),
+        tm=torch.where(start, tm_new, torch.where(cont, vx.tm, tm)),
+        th=torch.where(start[None], 1.0, torch.where(cont[None], vx.throughput, th)),
+        rad=rad,
+        need=need,
+        alive=cont | start,
+        depth=torch.where(start, 0, depth),
+        pix=pix,
+    )
+
+
+def _regen_drains(scene, cfg, gen, gen_rays, lanes: _Lanes, it: int, max_iter: int):
+    """The narrow drains of every schedule: compact the live lanes (stable)
+    into an N/4 wavefront and run their quotas there while more than N/16
+    live, then compact again into N/16 and finish (global-pool lanes owe
+    nothing after their in-flight sample and pass ``gen_rays`` None).
+    -> (per-lane radiance at full width, iterations of each stage)."""
+    n = lanes.alive.shape[0]
+    stages, counts = [], []
+    cur = lanes
+    for width, stop in ((n // 4, n // 16), (n // 16, 0)):
+        perm = _first_true(cur.alive, width)
+        nxt = cur.take(perm)
+        j = 0
+        while it < max_iter and int(nxt.alive.sum()) > stop:
+            nxt = _regen_step(scene, cfg, gen, gen_rays, nxt)
+            it += 1
+            j += 1
+        stages.append((cur.rad, perm))
+        counts.append(j)
+        cur = nxt
+    rad = cur.rad
+    for outer, perm in reversed(stages):
+        outer = outer.clone()
+        outer[:, perm] = rad
+        rad = outer
+    return rad, counts
+
+
+def _trace_lanes(scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par, pixel_pool, do_sort):
+    """The pixel-pool (``pixel_pool``) and quota schedules -> (per-lane
+    radiance SUM (3, N), iterations by phase).
+
+    **Quota**: every lane runs exactly ``spp_seq`` samples of its own pixel.
+    **Pixel pool**: each pixel's ``spp_par * spp_seq`` samples are shared by
+    that pixel's ``spp_par`` lanes; a lane idles only when its pixel's pool
+    is empty.  With the narrow drains (N >= 8192, no sort), phase A hands
+    off once N/4 or fewer lanes live; a pixel with samples left has all its
+    lanes live then, and its leftover pool is split among them by rank as
+    per-lane quotas, so every pixel still gets exactly
+    ``spp_par * spp_seq`` samples.
+
+    With ``do_sort`` (quota only), the wavefront is sorted by
+    :func:`ops.sort.ray_sort_key` after every vertex, and the final
+    radiance is regrouped by pixel: sorted by pixel id (pixel-contiguous),
+    then, with ``spp_par``, reshaped to lane ``l`` -> pixel ``l % n_pix``.
+    """
+    n = pix0.shape[0]
+    dev = pix0.device
+    max_iter = (spp_seq + 1) * cfg.max_depth + 2  # hard safety bound
+    narrow = n >= 8192 and not do_sort
+    n2 = n // 4 if narrow else n
+    wb = scene.stats.world_bounds
+
+    o, d, tm = gen_rays(gen, pix0)
+    reserve = None
+    if pixel_pool:
+        n_pix = n // spp_par
+        remaining = torch.full((n_pix,), spp_par * (spp_seq - 1), dtype=torch.int64, device=dev)
+        need = torch.zeros((n,), dtype=torch.int64, device=dev)
+
+        def reserve(want):
+            nonlocal remaining
+            start, remaining = _pool_reserve(want, remaining, spp_par)
+            return start
+    else:
+        need = torch.full((n,), spp_seq - 1, dtype=torch.int64, device=dev)
+    lanes = _Lanes(
+        o=o,
+        d=d,
+        tm=tm,
+        th=torch.ones((3, n), dtype=torch.float32, device=dev),
+        rad=torch.zeros((3, n), dtype=torch.float32, device=dev),
+        need=need,
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        depth=torch.zeros((n,), dtype=torch.int32, device=dev),
+        pix=pix0,
+    )
+    it = 0
+    while it < max_iter:
+        n_live = int(lanes.alive.sum())
+        if n_live == 0 or (narrow and n_live <= n2):
+            break
+        lanes = _regen_step(scene, cfg, gen, gen_rays, lanes, reserve)
+        if do_sort:
+            # re-pack neighbouring lanes into coherent rays; every per-lane
+            # state tensor follows the one permutation
+            lanes = _Lanes(*sort_by_key(ray_sort_key(lanes.o, lanes.d, wb[0], wb[1]), lanes))
+        it += 1
+
+    iters = {"pool": it, "drain_n4": 0, "drain_n16": 0}
+    rad = lanes.rad
+    if narrow:
+        if pixel_pool:
+            # split each pixel's leftover pool among its live lanes by rank
+            alivem = lanes.alive.reshape(spp_par, n_pix)
+            ai = alivem.to(torch.int64)
+            rank = torch.cumsum(ai, dim=0) - ai
+            k_al = torch.clamp(ai.sum(dim=0), min=1)
+            need_m = (remaining // k_al)[None] + (rank < (remaining % k_al)[None]).to(torch.int64)
+            lanes = lanes._replace(need=torch.where(alivem, need_m, 0).reshape(-1))
+        rad, (j4, j16) = _regen_drains(scene, cfg, gen, gen_rays, lanes, it, max_iter)
+        iters.update(drain_n4=j4, drain_n16=j16)
+    if do_sort:
+        # regroup by pixel: pixel-contiguous, then pixel-strided
+        (rad,) = sort_by_key(lanes.pix, (rad,))
+        if spp_par is not None:
+            rad = rad.reshape(3, -1, spp_par).transpose(1, 2).reshape(3, n)
+    return rad, iters
+
+
+def _trace_global(scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par):
+    """The global sample pool -> (per-lane radiance SUM (3, N), iterations
+    by phase).
+
+    The launch shares one pool of ``N * spp_seq`` samples; sample ``m``
+    targets pixel ``m % n_pix``.  A lane that finishes (or idles) reserves
+    the next undone sample by an exclusive cumsum over the wavefront.  A
+    finished sample's radiance is written at ``(slot, lane)``, where
+    ``slot`` is the lane's completed-sample count, and the sample's pixel
+    is recorded at the same place; one ``index_add_`` regroups everything
+    by pixel at the end.  With ``s_max > spp_seq`` slots the pool drains
+    before any lane could cap out, so every pixel gets exactly
+    ``spp_par * spp_seq`` samples.
 
     **Narrow drain** (N >= 8192): once the pool is empty and the lanes
     still in flight fit in N/4, they are compacted to N/4 and finished
@@ -236,16 +398,7 @@ def trace_regen(
 
     ``index_add_`` on CUDA sums with atomics in an order that changes
     between runs, so two runs agree to float tolerance, not bit for bit.
-    ``return_iters`` also returns the iteration counts of the three phases.
     """
-    if cfg.sort_rays:
-        raise NotImplementedError(f"the ray sort is {_SCHEDULES_TODO}")
-    schedule = choose_schedule(spp_seq, spp_par) if schedule is None else schedule
-    if schedule is not Schedule.GLOBAL:
-        raise NotImplementedError(f"the {schedule.value} schedule is {_SCHEDULES_TODO}")
-    if spp_par is None:
-        raise ValueError("the global pool needs spp_par (lanes per pixel)")
-
     dev = pix0.device
     n = pix0.shape[0]
     n_pix = n // spp_par
@@ -254,7 +407,6 @@ def trace_regen(
     max_iter = (spp_seq + 1) * cfg.max_depth + 2  # hard safety bound
     narrow = n >= 8192
     n2 = n // 4 if narrow else n
-    n3 = n // 16
 
     lane = torch.arange(n, device=dev)
     pix = lane % n_pix  # samples 0..N-1
@@ -318,20 +470,57 @@ def trace_regen(
     iters = {"pool": it, "drain_n4": 0, "drain_n16": 0}
     if narrow:
         # no pool is left: each live lane finishes its one in-flight sample
-        perm = _first_true(working, n2)
-        lanes = _Drain(o, d, tm, throughput, sample_rad, working, depth).take(perm)
-        pix_b = torch.where(lanes.alive, pix[perm], n_pix)
-        lanes, j4 = _drain(scene, cfg, gen, lanes, 0, lambda k: k > n3)
-        perm2 = _first_true(lanes.alive, n3)
-        lanes2, j16 = _drain(scene, cfg, gen, lanes.take(perm2), j4, lambda k: k > 0)
-        sr = lanes.sr.clone()
-        sr[:, perm2] = lanes2.sr
+        # (it owes no more, so no rays are generated), and the lane's pixel
+        # takes the result
+        lanes = _Lanes(o, d, tm, throughput, sample_rad, torch.zeros_like(slots), working, depth, pix)
+        sr, (j4, j16) = _regen_drains(scene, cfg, gen, None, lanes, it, max_iter)
         vals = torch.cat([vals, sr], dim=1)
-        pids = torch.cat([pids, pix_b])
-        iters.update(drain_n4=j4, drain_n16=j16 - j4)
+        pids = torch.cat([pids, torch.where(working, pix, n_pix)])
+        iters.update(drain_n4=j4, drain_n16=j16)
     # one regroup by pixel (the sentinel n_pix row drops off)
     img = torch.zeros((3, n_pix + 1), dtype=torch.float32, device=dev)
     img.index_add_(1, pids, vals)
     # per-lane contract: lane l carries pixel l % n_pix
     radiance = img[:, :n_pix].repeat(1, spp_par) / float(spp_par)
+    return radiance, iters
+
+
+def trace_regen(
+    scene: SceneData,
+    gen_rays,  # (gen, pix i64[N]) -> (o (3,N), d (3,N), tm (N,))
+    pix0: torch.Tensor,  # i64[N] lane -> pixel (lane l serves pixel l % n_pix)
+    spp_seq: int,  # samples per lane
+    gen: torch.Generator,
+    cfg: TraceConfig,
+    spp_par: Optional[int] = None,  # lanes per pixel
+    schedule: Optional[Schedule] = None,  # None: choose_schedule
+    return_iters: bool = False,
+):
+    """Path-regeneration wavefront -> per-lane radiance SUM (3, N); lane l
+    carries pixel ``pix0[l]`` (``l % n_pix`` as the renderer lays lanes
+    out) and the lanes of one pixel sum to that pixel's
+    ``spp_par * spp_seq`` samples.
+
+    A lane whose sample terminates (miss, absorption, pdf kill, depth cap)
+    starts the next one at once, so iterations stay near full occupancy:
+    about ``spp_seq * E[path length]`` of them instead of
+    ``spp_seq * max_depth``.  The per-sample estimator is :func:`trace`'s.
+    ``schedule`` picks how samples reach lanes (:class:`Schedule`); the ray
+    sort (``cfg.sort_rays``, on scenes with a tree and N >= 2048) runs the
+    quota schedule, as does a launch without ``spp_par``.
+    ``return_iters`` also returns the iteration counts of phase A (before
+    the drains) and of the two drain stages.
+    """
+    n = pix0.shape[0]
+    do_sort = cfg.sort_rays and scene.use_bvh and n >= 2048
+    schedule = choose_schedule(spp_seq, spp_par) if schedule is None else schedule
+    if spp_par is None or do_sort:
+        schedule = Schedule.QUOTA
+    if schedule is Schedule.GLOBAL:
+        radiance, iters = _trace_global(scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par)
+    else:
+        radiance, iters = _trace_lanes(
+            scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par,
+            pixel_pool=schedule is Schedule.PIXEL, do_sort=do_sort,
+        )
     return (radiance, iters) if return_iters else radiance

@@ -1,10 +1,13 @@
 """High-level renderer: config, launches, strips and checkpoints (PyTorch).
 
-Counterpart of ``raytracer2022_tpu/render/renderer.py``, regeneration path
-(the reference's main program, raytracer/src/main.rs:28-231).  A render is
-a sequence of launches over horizontal image strips; each launch traces
-``spp_par`` lanes per pixel, each running up to 32 samples in sequence
-through :func:`integrator.trace_regen`.  Launch ``i`` draws from a fresh
+Counterpart of ``raytracer2022_tpu/render/renderer.py`` (the reference's
+main program, raytracer/src/main.rs:28-231).  A render is a sequence of
+launches.  On the regeneration path (``RenderConfig.regen``, the default)
+they run over horizontal image strips; each launch traces ``spp_par`` lanes
+per pixel, each running up to 32 samples in sequence through
+:func:`integrator.trace_regen`.  With ``regen=False`` each launch traces a
+batch of samples per pixel through the fixed-depth :func:`integrator.trace`
+(:func:`render_batch`).  Launch ``i`` draws from a fresh
 ``torch.Generator`` seeded from ``(seed, i)``, so a resumed render gives
 the identical image.
 """
@@ -22,7 +25,7 @@ import torch
 from ..scene.types import SceneData
 from .camera import Camera, get_rays
 from .film import tonemap_u8
-from .integrator import TraceConfig, trace_regen
+from .integrator import Schedule, TraceConfig, trace, trace_regen
 
 # sequential samples per lane in one launch: every launch pays the
 # scheduler's low-occupancy tail once, and more samples amortise it
@@ -43,6 +46,7 @@ class RenderConfig:
     spawn_eps: float = 1e-4
     spp_per_batch: int = 0  # lanes per pixel: 0 = auto, -1 = all spp in parallel
     max_rays_per_batch: int = 1 << 18  # lanes per launch (auto batching, strips)
+    regen: bool = True  # path regeneration; False: the fixed-depth trace
 
     def trace_cfg(self) -> TraceConfig:
         return TraceConfig(
@@ -59,6 +63,30 @@ def launch_generator(seed: int, launch: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state))
     return gen
+
+
+def render_batch(
+    scene: SceneData,
+    camera: Camera,
+    gen: torch.Generator,
+    width: int,
+    height: int,
+    spp: int,
+    cfg: TraceConfig,
+) -> torch.Tensor:
+    """One launch of the fixed-depth :func:`integrator.trace` -> (3, H, W)
+    radiance SUM over ``spp`` samples per pixel.  Lanes are
+    pixel-contiguous (the ``spp`` lanes of a pixel are adjacent); pixel
+    (x, y) uses u = (x + U)/(W-1), v = (y + U)/(H-1) (main.rs:144-148)."""
+    n = height * width * spp
+    dev = scene.device
+    ys = torch.arange(height, dtype=torch.float32, device=dev).repeat_interleave(width * spp)
+    xs = torch.arange(width, dtype=torch.float32, device=dev).repeat_interleave(spp).repeat(height)
+    u = (xs + torch.rand((n,), generator=gen, device=gen.device)) / (width - 1)
+    v = (ys + torch.rand((n,), generator=gen, device=gen.device)) / (height - 1)
+    o, d, tm = get_rays(camera, u, v, gen)
+    radiance = trace(scene, o, d, tm, gen, cfg)  # (3, N)
+    return radiance.reshape(3, height, width, spp).sum(dim=3)
 
 
 def _regen_gen_rays(camera: Camera, width: int, height: int, pix_offset: int = 0):
@@ -89,15 +117,18 @@ def render_batch_regen(
     row0: int = 0,  # first image row of this launch's strip
     rows: Optional[int] = None,  # strip height (None = full frame)
     return_iters: bool = False,
+    schedule: Optional[Schedule] = None,  # None: integrator.choose_schedule
 ):
     """One launch -> (3, rows, W) radiance SUM over ``spp_par * spp_seq``
-    samples per pixel of the strip."""
+    samples per pixel of the strip; ``schedule`` forces how samples reach
+    lanes (the JAX package's ``pool`` argument)."""
     rows = height if rows is None else rows
     n = rows * width * spp_par
     pix0 = torch.arange(n, device=scene.device) % (rows * width)
     gen_rays = _regen_gen_rays(camera, width, height, pix_offset=row0 * width)
     radiance, iters = trace_regen(
-        scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par=spp_par, return_iters=True
+        scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par=spp_par, schedule=schedule,
+        return_iters=True,
     )
     img = radiance.reshape(3, spp_par, rows, width).sum(dim=1)
     return (img, iters) if return_iters else img
@@ -126,7 +157,9 @@ def render_sum_n(
     launch, atomically, and a rerun with the same configuration resumes
     from the last completed launch; a mismatched file restarts.
     ``launch_log``, when given, receives each launch's lane count,
-    iteration counts and wall seconds (synchronised on CUDA).
+    iteration counts and wall seconds (synchronised on CUDA).  With
+    ``cfg.regen`` False the launches run :func:`render_batch` over the
+    whole frame, ``batch`` samples per pixel each, without checkpoints.
     """
     tcfg = cfg.trace_cfg()
     pixels = cfg.width * cfg.height
@@ -135,9 +168,14 @@ def render_sum_n(
     elif cfg.spp_per_batch < 0:
         batch = cfg.spp
     else:
-        # auto: bound lanes per launch, and keep spp_seq >= 8 when spp allows
+        # auto: bound lanes per launch
         batch = min(cfg.spp, max(1, cfg.max_rays_per_batch // pixels))
-        batch = max(1, min(batch, cfg.spp // 8))
+        if cfg.regen:
+            # regeneration pays only when each lane runs several samples:
+            # keep spp_seq >= 8 when spp allows
+            batch = max(1, min(batch, cfg.spp // 8))
+    if not cfg.regen:
+        return _render_fixed_depth(scene, camera, cfg, batch, progress, launch_log)
     spp_seq = -(-cfg.spp // batch)
     chunk = min(spp_seq, MAX_SPP_SEQ)
     if progress is not None:
@@ -192,6 +230,31 @@ def render_sum_n(
                 total_spp = n_launches * chunk * batch
                 progress(launch * total_spp // (n_strips * n_launches), total_spp)
     return total, n_launches * chunk * batch
+
+
+def _render_fixed_depth(scene, camera, cfg: RenderConfig, batch: int, progress, launch_log):
+    """``render_sum_n`` on the fixed-depth path: ceil(spp / batch) launches
+    of :func:`render_batch`."""
+    tcfg = cfg.trace_cfg()
+    device = scene.device
+    n_batches = -(-cfg.spp // batch)
+    total = torch.zeros((3, cfg.height, cfg.width), dtype=torch.float32, device=device)
+    for i in range(n_batches):
+        t0 = time.perf_counter()
+        total += render_batch(
+            scene, camera, launch_generator(cfg.seed, i, device),
+            cfg.width, cfg.height, batch, tcfg,
+        )
+        if launch_log is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            launch_log.append(
+                {"lanes": cfg.width * cfg.height * batch, "bounces": cfg.max_depth,
+                 "seconds": time.perf_counter() - t0}
+            )
+        if progress is not None:
+            progress((i + 1) * batch, n_batches * batch)
+    return total, n_batches * batch
 
 
 def render_sum(scene, camera, cfg: RenderConfig, progress=None, checkpoint=None):

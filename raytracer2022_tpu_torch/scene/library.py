@@ -3,12 +3,10 @@
 Counterpart of ``raytracer2022_tpu/scene/library.py`` with every scene
 (reference: raytracer/src/scene.rs).  Each function returns a
 :class:`SceneBundle` (compiled scene, camera kwargs, background), and
-compiles on the host for any ``device``.  Rendering is limited to what
-the port supports so far: ``cornell_box`` and ``cornell_box_book`` render;
-the others need textures, media or transforms that are not ported yet
-(ROADMAP.md, port queue).  ``earth``, ``final_scene``, ``obj_uv_demo`` and
-``wwscene`` read assets from ``RT2022_SOURCE_DIR`` (default: ``assets/``
-at the repository root).
+compiles on the host for any ``device``, and every scene renders.
+``earth``, ``final_scene``, ``obj_uv_demo`` and ``wwscene`` read assets
+from ``RT2022_SOURCE_DIR`` (default: ``assets/`` at the repository root),
+which the repository does not hold; image files need Pillow.
 """
 
 from __future__ import annotations

@@ -101,8 +101,8 @@ class MaterialTable:
 @dataclasses.dataclass(frozen=True)
 class ClusterTree:
     """Two-level acceleration structure: fixed-size primitive clusters
-    (layout documented in the JAX package's ``ClusterTree``).  Compiled
-    here for parity; its traversal is not ported yet."""
+    (layout documented in the JAX package's ``ClusterTree``), walked by
+    ``ops.intersect.traverse_clusters``."""
 
     bmin: torch.Tensor  # f32[3, C]
     bmax: torch.Tensor  # f32[3, C]

@@ -1,11 +1,25 @@
-"""Profiling hook: an optional ``torch.profiler`` trace around a render
+"""Profiling hooks: an optional ``torch.profiler`` trace around a render
 (wired to ``--trace-dir`` in the CLI), in place of the JAX package's
-``xla_trace``."""
+``xla_trace``, and the named spans of the render loop."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+
+import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` span named ``name`` while a profiler runs, and
+    a no-op otherwise: the render loop is bound by host dispatch, and an
+    entered span is an operator call even with no profiler attached."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -15,7 +29,6 @@ def torch_trace(logdir: str | None):
     if not logdir:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

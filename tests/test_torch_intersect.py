@@ -10,11 +10,12 @@ import torch
 
 import chip_smoke
 from raytracer2022_tpu.ops import intersect as jx
+from raytracer2022_tpu.scene import library as jlib
 from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
 from raytracer2022_tpu_torch.ops import intersect as tx
 from raytracer2022_tpu_torch.scene import library as tlib
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
-from raytracer2022_tpu_torch.scene.types import BOX, MSPHERE, RECT, RING, SPHERE, TRIANGLE
+from raytracer2022_tpu_torch.scene.types import BOX, MEDIUM, MSPHERE, RECT, RING, SPHERE, TRIANGLE
 
 torch.set_num_threads(1)
 
@@ -155,7 +156,21 @@ def test_tree_closest_hit_matches_jax_cluster_walk():
 
 
 def test_unported_scene_parts_raise():
-    smoke = tlib.cornell_smoke().scene  # media + rotated boxes
-    o, d, tm = (torch.as_tensor(x) for x in _rays(n=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tx.closest_hit(smoke, o, d, tm, T_MIN, float("inf"))
+    """cornell_smoke (media with rotated box boundaries), which the port
+    once refused, now runs closest_hit: where neither package's medium
+    scattered the ray, both find the same surface hit."""
+    js, smoke = jlib.cornell_smoke().scene, tlib.cornell_smoke().scene
+    o, d, tm = _rays(n=2048)
+    o = (np.abs(o) % 500 + 20).astype(np.float32)  # origins inside the box
+    h_ref, _ = jx.closest_hit(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm), T_MIN, jnp.inf,
+                              jax.random.PRNGKey(0))
+    h_got, _ = tx.closest_hit(smoke, *(torch.as_tensor(x) for x in (o, d, tm)), T_MIN, float("inf"),
+                              torch.Generator().manual_seed(0))
+    kind = smoke.kind.numpy()
+    med_ref = kind[np.asarray(h_ref.prim)] == MEDIUM
+    med_got = kind[h_got.prim.numpy()] == MEDIUM
+    assert med_got.any() and med_ref.any()
+    surf = ~med_ref & ~med_got
+    np.testing.assert_array_equal(h_got.hit.numpy()[surf], np.asarray(h_ref.hit)[surf])
+    _assert_t_close(np.asarray(h_ref.t)[surf], h_got.t.numpy()[surf])
+    np.testing.assert_array_equal(h_got.prim.numpy()[surf], np.asarray(h_ref.prim)[surf])

@@ -13,11 +13,12 @@ import pytest
 import torch
 
 import chip_smoke
+from raytracer2022_tpu_torch.ops import intersect
 from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
 from raytracer2022_tpu_torch.ops.intersect import closest_hit
 from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-from raytracer2022_tpu_torch.scene.types import MEDIUM, TRIANGLE, Bvh8Tree
+from raytracer2022_tpu_torch.scene.types import BOX, MEDIUM, TRIANGLE, Bvh8Tree
 
 torch.set_num_threads(1)
 
@@ -93,6 +94,49 @@ def test_closest_hit_on_the_card_goes_through_the_kernel(cuda_device):
     hit = h_cpu.hit.numpy()
     np.testing.assert_allclose(h_gpu.t.cpu().numpy()[hit], h_cpu.t.numpy()[hit], rtol=2e-5, atol=2e-5)
     assert (h_gpu.prim.cpu().numpy()[hit] == h_cpu.prim.numpy()[hit]).mean() >= 0.99
+
+
+def _mixed_scene(device):
+    """The small stand-in mesh (a TRIANGLE tree with a packet tree) plus
+    600 rotated and translated boxes (a transformed BOX tree, which only
+    the cluster walk takes)."""
+    b = SceneBuilder()
+    chip_smoke.stand_in_mesh_scene(b, 24, 12)
+    rng = np.random.default_rng(9)
+    white = b.lambertian((0.73, 0.73, 0.73))
+    ids = [b.box(c, c + rng.uniform(3, 12, 3), white)[0] for c in rng.uniform(0, 200, (600, 3))]
+    b.rotate_y(ids, 20.0)
+    b.translate(ids, (250, 40, 120))
+    return b.finalize(cluster_size=128, device=device)
+
+
+@pytest.mark.cuda
+def test_mixed_scene_launches_k1_and_walks_the_transformed_tree(cuda_device, monkeypatch):
+    """closest_hit on a scene with a packet tree and a transformed tree:
+    one K1 launch for the mesh, one cluster walk for the boxes, and the
+    same hits as the CPU (plain versions)."""
+    walks = []
+    walk = intersect.traverse_clusters
+    monkeypatch.setattr(intersect, "traverse_clusters", lambda *a, **k: walks.append(a[1]) or walk(*a, **k))
+    cpu_scene, gpu_scene = _mixed_scene("cpu"), _mixed_scene(cuda_device)
+    kinds = [t[0] for t in gpu_scene.stats.trees]
+    assert sorted(kinds) == [TRIANGLE, BOX] and [t[4] for t in gpu_scene.stats.trees] == [k == BOX for k in kinds]
+    rays = [torch.as_tensor(x) for x in chip_smoke.random_rays(np.random.default_rng(5), 4096, 1.0, 554.0)]
+    h_cpu, _ = closest_hit(cpu_scene, *rays, T_MIN, float("inf"))
+    before = traverse_bvh8.launches
+    walks.clear()
+    h_gpu, _ = closest_hit(gpu_scene, *(x.to(cuda_device) for x in rays), T_MIN, float("inf"))
+    assert traverse_bvh8.launches == before + 1
+    assert walks == [kinds.index(BOX)]
+    hit = h_cpu.hit.numpy()
+    np.testing.assert_array_equal(h_gpu.hit.cpu().numpy(), hit)
+    np.testing.assert_allclose(h_gpu.t.cpu().numpy()[hit], h_cpu.t.numpy()[hit], rtol=2e-5, atol=2e-5)
+    same = h_gpu.prim.cpu().numpy()[hit] == h_cpu.prim.numpy()[hit]
+    assert same.mean() >= 0.99
+    won = cpu_scene.kind.numpy()[h_cpu.prim.numpy()[hit]]
+    assert (won == BOX).sum() > 50 and (won == TRIANGLE).sum() > 50
+    np.testing.assert_allclose(h_gpu.normal.cpu().numpy()[:, hit][:, same], h_cpu.normal.numpy()[:, hit][:, same],
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

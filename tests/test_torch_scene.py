@@ -70,10 +70,16 @@ def _both(name):
         chip_smoke.stand_in_mesh_scene(jb, 24, 12)
         chip_smoke.stand_in_mesh_scene(tb, 24, 12)
         return jb.finalize(), tb.finalize()
+    if name == "final_scene_stand_in":
+        jb, tb = JaxBuilder(), TorchBuilder()
+        earth = chip_smoke.earth_stand_in()
+        chip_smoke.final_scene_stand_in(jb, earth)
+        chip_smoke.final_scene_stand_in(tb, earth)
+        return jb.finalize(), tb.finalize()
     return jlib.SCENES[name]().scene, tlib.SCENES[name]().scene
 
 
-@pytest.mark.parametrize("name", LIBRARY + ["stand_in_mesh"])
+@pytest.mark.parametrize("name", LIBRARY + ["stand_in_mesh", "final_scene_stand_in"])
 def test_compiled_arrays_equal_jax(name):
     js, ts = _both(name)
     assert_tree_equal(jax_scene_arrays(js), ts.to_numpy())

@@ -146,19 +146,26 @@ def test_render_checkpoint_resume(tmp_path, monkeypatch):
 
 
 def test_schedule_choice_and_unported_schedules():
+    """choose_schedule picks as the JAX package does, and every schedule,
+    with and without the ray sort request, now runs: each keeps the
+    per-lane contract (lane l carries pixel l % n_pix, and a pixel's lanes
+    sum to its spp_par * spp_seq samples), exact on the emissive dome."""
     assert choose_schedule(32, 4) is Schedule.GLOBAL
     assert choose_schedule(33, 4) is Schedule.PIXEL
     assert choose_schedule(8, None) is Schedule.QUOTA
-    scene, cam = _checkpoint_scene()
-    gen_rays = R._regen_gen_rays(cam, 4, 4)
-    pix0 = torch.arange(32) % 16
-    cfg = TraceConfig(max_depth=2)
-    for sched in (Schedule.PIXEL, Schedule.QUOTA):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trace_regen(scene, gen_rays, pix0, 4, torch.Generator(), cfg, spp_par=2, schedule=sched)
-    with pytest.raises(NotImplementedError, match="ray sort"):
-        trace_regen(scene, gen_rays, pix0, 4, torch.Generator(),
-                    TraceConfig(max_depth=2, sort_rays=True), spp_par=2)
+    scene = _dome(True)
+    cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 60, 1.0)
+    gen_rays = R._regen_gen_rays(cam, 8, 8)
+    pix0 = torch.arange(128) % 64
+    for sched in Schedule:
+        for sort in (False, True):
+            cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0), sort_rays=sort)
+            rad = trace_regen(scene, gen_rays, pix0, 4, torch.Generator().manual_seed(1), cfg,
+                              spp_par=2, schedule=sched)
+            assert rad.shape == (3, 128)
+            per_pixel = rad.reshape(3, 2, 64).sum(dim=1).numpy() / 8
+            np.testing.assert_allclose(per_pixel, np.broadcast_to(np.array([[1.5], [2.0], [2.5]]), (3, 64)),
+                                       rtol=1e-6)
 
 
 def test_tonemap_matches_jax():
