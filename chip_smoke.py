@@ -3,9 +3,13 @@
     python3 chip_smoke.py
 
 Builds kernel K1 (``raytracer2022_tpu_torch/csrc/bvh8.cu``) with nvcc,
-checks it against its plain PyTorch version on every primitive kind and on
-the stand-in mesh at the main path's width, then renders through the
-port's entry points: the stand-in mesh scene and a stand-in ``final_scene``
+checks it against its plain PyTorch version on every primitive kind (three
+``t_init`` modes, both instantiations: group arrays in shared and in
+global memory) and on the stand-in mesh at the main path's width, then
+renders through the port's entry points: the stand-in mesh scene (whose K1
+calls also give S2, bounce rays; S1 is camera rays, S3 final_scene's
+sphere tree), holds K1's visit counts against the reference walk, times K1
+at S1-S3 against its bound, and renders a stand-in ``final_scene``
 (media, image and noise textures, a 1000-sphere cluster tree) through
 ``render_sum_n``, ``cornell_box`` and every library scene that needs no
 file through ``cli.main``, the pixel-pool and quota schedules with exact
@@ -18,6 +22,7 @@ line before the card's name and power limit is the kernel table as JSON.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -139,7 +144,7 @@ def final_scene_stand_in(builder, earth: np.ndarray) -> dict:
     )
 
 
-def sphere_cluster_scene(builder, bvh8_kinds=None, device="cpu"):
+def sphere_cluster_scene(builder, bvh8_kinds=None, *, device):
     """final_scene's 1000 spheres (radius 10, centres uniform in
     [0, 165)^3), untransformed, alone: one SPHERE tree.  With the default
     packet-tree policy it has no packet tree (the cluster walk); with
@@ -195,9 +200,10 @@ def check_parity(kind: int, ref, got) -> dict:
     }
 
 
-def small_tree_scene(builder, kind: int, rng, n_prims: int = 100):
+def small_tree_scene(builder, kind: int, rng, n_prims: int = 100, **finalize_kw):
     """A generated scene of one primitive kind with an 8-ary tree (the
-    shapes of the JAX package's tests/test_bvh8.py)."""
+    shapes of the JAX package's tests/test_bvh8.py); ``finalize_kw`` go to
+    the builder's ``finalize`` (the port's takes ``device``)."""
     b = builder
     mat = b.lambertian((0.5, 0.5, 0.5))
     for _ in range(n_prims):
@@ -214,7 +220,7 @@ def small_tree_scene(builder, kind: int, rng, n_prims: int = 100):
             b.triangle(c, c + rng.uniform(-4, 4, 3), c + rng.uniform(-4, 4, 3), mat)
         else:
             b.ring(rng.uniform(2, 25), rng.uniform(0.05, 0.5), mat)
-    return b.finalize(bvh_threshold=16, cluster_size=32, bvh8_kinds=(kind,))
+    return b.finalize(bvh_threshold=16, cluster_size=32, bvh8_kinds=(kind,), **finalize_kw)
 
 
 def random_rays(rng, n: int, lo: float, hi: float):
@@ -278,6 +284,233 @@ def _time_cuda(fn, reps: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# K1 at the main path's shapes: time, bound, visit counts
+# ---------------------------------------------------------------------------
+
+# The least time of a K1 launch is the larger of its bytes over the card's
+# memory rate and its operations over the peak rate of their type, from an
+# H100 SXM's data sheet: 3.35 TB/s, and 67 TFLOP/s in f32 and 34 TFLOP/s in
+# f64 outside the tensor cores.  Those peaks count a fused multiply-add as
+# two operations; K1 is built with -fmad=false, so each of its operations
+# is one instruction, and the bound takes half of each peak: one
+# instruction per lane and cycle.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+F64_OPS_PER_S = 34e12 / 2
+BOX_OPS = 25  # f32 ops of one child's slab test: 6 sub, 6 mul, 12 min/max, 1 compare
+# (f32, f64) ops of one leaf row's formula (csrc/bvh8.cu leaf_t), counting
+# each add, sub, mul, div, sqrt and compare once
+ROW_OPS = {SPHERE: (7, 27), MSPHERE: (20, 27), RECT: (18, 0), TRIANGLE: (144, 0), RING: (14, 0)}
+S2_CALLS = (20, 21)  # main-path K1 calls whose rays make S2: bounce rays of launch 0
+VISIT_SAMPLE = 2048  # rays of S1 and S2 whose visit counts are held against the reference walk
+
+
+def k1_bound(tree, kind: int, n: int, groups: int, leaves: int, rows: bool) -> dict:
+    """The least time of one K1 launch on ``n`` rays that visit ``groups``
+    groups and ``leaves`` leaves in all: each input read once (rays 32 B,
+    the tree's four arrays), each output written once (t and best 8 B, the
+    winner row 96 B when asked for); 8 child slab tests per group and 16
+    rows per leaf."""
+    tree_bytes = sum(x.numel() * x.element_size() for x in (tree.entries, tree.axorder, tree.boxes, tree.prows))
+    nbytes = n * 32 + n * 8 + (n * 96 if rows else 0) + tree_bytes
+    f32 = BOX_OPS * 8 * groups + ROW_OPS[kind][0] * 16 * leaves
+    f64 = ROW_OPS[kind][1] * 16 * leaves
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32 / F32_OPS_PER_S + f64 / F64_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "f32_ops": f32, "f64_ops": f64}
+
+
+def _device_ms(fn, reps: int, match: str = "bvh8") -> float:
+    """Mean device milliseconds per ``fn()`` of the CUDA kernels whose name
+    holds ``match``, under torch.profiler (the kernel's own time, not the
+    host's enqueue pace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # each matching kernel runs once per call: its mean over the events the
+    # profiler kept
+    means = [e.self_device_time_total / e.count for e in prof.key_averages()
+             if match in e.key and str(e.device_type).endswith("CUDA") and e.count > 0]
+    assert means, "the profiler saw no K1 kernel on the device"
+    return sum(means) / 1e3
+
+
+@contextlib.contextmanager
+def k1_tree_memory(mode: str):
+    """Within the block, K1 runs its ``global`` instantiation (group arrays
+    in global memory) even where the tree fits in shared memory; with
+    ``shared`` the wrapper chooses, as on the main path."""
+    from raytracer2022_tpu_torch.ops import bvh8
+
+    keep = bvh8._tree_in_shared
+    if mode == "global":
+        bvh8._tree_in_shared = lambda lib, ng: False
+    try:
+        yield
+    finally:
+        bvh8._tree_in_shared = keep
+
+
+def check_visits(label: str, tree, kind: int, o, d, tm, t_init, visits, rng) -> None:
+    """The kernel's per-ray visit counts equal the reference walk's on
+    ``VISIT_SAMPLE`` rays drawn from ``rng``."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops.bvh8 import FAR, walk_bvh8_reference
+
+    idx = torch.as_tensor(np.sort(rng.choice(o.shape[1], VISIT_SAMPLE, replace=False)), device=o.device)
+    ti = torch.clamp(t_init, max=FAR)[idx]
+    _, _, groups, leaves, deepest = walk_bvh8_reference(
+        tree, kind, *(x[..., idx].cpu().numpy() for x in (o, d, tm)), T_MIN, ti.cpu().numpy())
+    got = visits[:, idx].cpu().numpy()
+    assert np.array_equal(got[0], groups) and np.array_equal(got[1], leaves), \
+        f"{label}: K1's visit counts differ from the reference walk's"
+    print(f"K1 visits {label}: {VISIT_SAMPLE} sampled rays equal the reference walk's (groups mean "
+          f"{groups.mean():.3f} max {groups.max()}, leaves mean {leaves.mean():.3f} max {leaves.max()}, "
+          f"deepest stack {deepest.max()})", flush=True)
+
+
+def raw_k1(lib, tree, kind: int, o, d, tm, t_init, rows: bool, tree_in_shared=None):
+    """A closure that launches K1 (``lib``, the ctypes library of
+    ``csrc/bvh8.cu``) on outputs allocated once, with nothing around the
+    ctypes call but zeroing the ray counter: timed by CUDA events it gives
+    the kernel's own time, where the wrapper's Python would set the pace."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import bvh8
+
+    n = o.shape[1]
+    dev = o.device
+    ti = torch.clamp(t_init, max=bvh8.FAR).contiguous()
+    t = torch.empty_like(tm)
+    best = torch.empty((n,), dtype=torch.int32, device=dev)
+    out_rows = torch.empty((bvh8.NCOL, n), dtype=torch.float32, device=dev) if rows else None
+    win = torch.empty((n,), dtype=torch.int32, device=dev) if rows else None
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tree_ptrs = [x.data_ptr() for x in (tree.entries, tree.axorder, tree.boxes, tree.prows)]
+    ray_ptrs = [x.data_ptr() for x in (o, d, tm, ti)]
+    rows_ptr = None if out_rows is None else out_rows.data_ptr()
+    ng = tree.entries.shape[0] // bvh8.FANOUT
+    shared = bvh8._tree_in_shared(lib, ng) if tree_in_shared is None else tree_in_shared
+    args = (kind, int(shared), T_MIN, n, ng, *tree_ptrs, *ray_ptrs, t.data_ptr(), best.data_ptr(),
+            None if win is None else win.data_ptr(), rows_ptr, None, counter.data_ptr(), stream)
+
+    def run():
+        counter.zero_()
+        assert lib.rt_bvh8_traverse(*args) == 0, "K1 launch failed"
+
+    run.buffers = (ti, t, best, out_rows, win, counter)  # alive while the kernel writes them
+    return run
+
+
+def k1_at_shape(label: str, tree, kind: int, o, d, tm, t_init, rows: bool, smi: str) -> dict:
+    """K1 on one shape: its visit counts over every ray, the bound they
+    give, and, in each instantiation the tree can take, its time: by CUDA
+    events over direct launches (``ms``), by the profiler's device time,
+    and by CUDA events over calls of the wrapper as the main path makes
+    them (``wrapper_ms``, which the host's pace may set)."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
+
+    n = o.shape[1]
+    out = {"rays": n}
+    for mode in ("shared", "global"):
+        with k1_tree_memory(mode):
+            visits = traverse_bvh8(tree, kind, o, d, tm, T_MIN, t_init=t_init, return_visits=True)[-1]
+            if bvh8.TREE_MEMORY != mode:
+                continue  # the tree does not fit in shared memory
+
+            def run():
+                traverse_bvh8(tree, kind, o, d, tm, T_MIN, t_init=t_init, return_rows=rows)
+
+            raw = raw_k1(bvh8._kernel_lib(), tree, kind, o, d, tm, t_init, rows, mode == "shared")
+            out[mode] = {"ms": _time_cuda(raw, 50), "device_ms": _device_ms(run, 20),
+                         "wrapper_ms": _time_cuda(run, 20)}
+    groups, leaves = (int(x) for x in visits.sum(dim=1, dtype=torch.int64).cpu())
+    out.update(k1_bound(tree, kind, n, groups, leaves, rows))
+    out.update(groups_per_ray=groups / n, leaves_per_ray=leaves / n,
+               leaves_max=int(visits[1].max()), groups_max=int(visits[0].max()))
+    best = out.get("shared", out["global"])
+    out["ms"] = best["ms"]
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    times = ", ".join(f"{m} {out[m]['ms']:.4f} ms (profiler {out[m]['device_ms']:.4f}, through the wrapper "
+                      f"{out[m]['wrapper_ms']:.4f})" for m in ("shared", "global") if m in out)
+    print(f"K1 {label}: {n} rays, {groups / n:.3f} groups and {leaves / n:.3f} leaves per ray; {times}; bound "
+          f"{out['bound_ms'] * 1e3:.2f} us by {out['bound_by']} ({out['bytes'] / 1e6:.2f} MB, "
+          f"{out['f32_ops'] / 1e9:.3f} GFLOP f32, {out['f64_ops'] / 1e9:.3f} f64), {100 * out['share_of_bound']:.1f}% "
+          f"of it ({smi})", flush=True)
+    return out
+
+
+def sphere_tree_rays(dev):
+    """S3: final_scene's 1000 spheres with a packet tree and 262,144
+    bounce-like rays (origins spread through the cluster's box)."""
+    import torch
+
+    from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+
+    scene = sphere_cluster_scene(SceneBuilder(), bvh8_kinds=(SPHERE,), device=dev)
+    rng = np.random.default_rng(77)
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in random_rays(rng, LANES, -10.0, 175.0))
+    return scene, o, d, tm
+
+
+def mesh_rays(mesh, cam, rng):
+    """262,144 camera rays of the stand-in mesh (a jittered 512 x 512 grid;
+    with their t_init, S1) followed by 65,536 random rays inside the box,
+    and as t_init the dense windows' closest t, as closest_hit passes it."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops.intersect import candidate_t
+    from raytracer2022_tpu_torch.render.camera import get_rays
+
+    dev = mesh.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    side = 512  # 512 x 512 = 262,144 camera rays
+    ys, xs = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
+    u = (xs.reshape(-1).float() + torch.rand(side * side, generator=gen, device=dev)) / (side - 1)
+    v = (ys.reshape(-1).float() + torch.rand(side * side, generator=gen, device=dev)) / (side - 1)
+    o_c, d_c, tm_c = get_rays(cam, u, v, gen)
+    o_r, d_r, tm_r = (torch.as_tensor(x, device=dev) for x in random_rays(rng, 65536, 1.0, 554.0))
+    o = torch.cat([o_c, o_r], 1)
+    d = torch.cat([d_c, d_r], 1)
+    tm = torch.cat([tm_c, tm_r])
+    t_dense = candidate_t(mesh, o, d, tm, T_MIN, float("inf"),
+                          prim_slice=slice(mesh.stats.n_in_bvh, mesh.n_prims)).amin(dim=0)
+    return o, d, tm, t_dense
+
+
+def print_ptxas(log: str) -> None:
+    """One line per kernel of an nvcc -Xptxas -v log: registers, stack
+    frame, spills and shared memory."""
+    import re
+
+    name = "?"
+    props = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(bvh8_\w+?)(?:ILi(\d)E(Lb(\d))?)?E", line)
+            name = m.group(1) if m else line.split("'")[1]
+            if m and m.group(2):
+                name += f"<kind {m.group(2)}" + (f", shared {m.group(4)}>" if m.group(4) else ">")
+        elif "stack frame" in line:
+            props = line.strip()
+        elif "Used" in line and "registers" in line:
+            print(f"  ptxas {name}: {line.split(':', 1)[1].strip()}; {props}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phases of this slice: final_scene, the library, schedules, sort, trace,
 # and the packet-tree policy
 # ---------------------------------------------------------------------------
@@ -338,7 +571,7 @@ def phase_final_scene(dev, smi) -> dict:
 
     import torch
 
-    from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
+    from raytracer2022_tpu_torch.ops import bvh8
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
@@ -362,12 +595,12 @@ def phase_final_scene(dev, smi) -> dict:
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=FINAL_SPP, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
     log: list = []
     torch.cuda.synchronize()
-    traverse_bvh8.launches = 0
+    bvh8.LAUNCHES = 0
     t0 = time.perf_counter()
     total, n = render_sum_n(scene, cam, cfg, launch_log=log)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    k1 = traverse_bvh8.launches
+    k1 = bvh8.LAUNCHES
     img = (total / n).cpu().numpy()
     assert img.shape == (3, HEIGHT, WIDTH) and np.isfinite(img).all(), "final_scene: non-finite pixels"
     assert img.mean() > 1e-3, "final_scene render is black"
@@ -525,10 +758,11 @@ def phase_sort_and_trace(dev, smi) -> None:
     assert np.isfinite(means[False]).all() and (rel < MAX_REL).all(), "trace and trace_regen disagree"
 
 
-def phase_packet_policy(dev, smi) -> dict:
+def phase_packet_policy(dev, smi, s3) -> dict:
     """The TRIANGLE-only packet-tree policy, measured: final_scene's 1000
     spheres untransformed, walked by the cluster walk (the default policy)
-    and by K1 (``bvh8_kinds=(SPHERE,)``) on 262,144 bounce-like rays."""
+    and by K1 (``bvh8_kinds=(SPHERE,)``) on S3's 262,144 bounce-like rays,
+    whose K1 time ``s3`` (``k1_at_shape``) holds."""
     import torch
 
     from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
@@ -536,11 +770,8 @@ def phase_packet_policy(dev, smi) -> dict:
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
 
     s_walk = sphere_cluster_scene(SceneBuilder(), device=dev)
-    s_k1 = sphere_cluster_scene(SceneBuilder(), bvh8_kinds=(SPHERE,), device=dev)
+    s_k1, o, d, tm = sphere_tree_rays(dev)
     assert s_walk.bvh8 == (None,) and s_k1.bvh8[0] is not None
-    rng = np.random.default_rng(77)
-    # bounce-like: origins spread through the cluster's box, random directions
-    o, d, tm = (torch.as_tensor(x, device=dev) for x in random_rays(rng, LANES, -10.0, 175.0))
     inf = torch.full_like(tm, float("inf"))
     t_w, b_w = traverse_clusters(s_walk, 0, o, d, tm, T_MIN, float("inf"))
     t_k, b_k, _ = traverse_bvh8(s_k1.bvh8[0], SPHERE, o, d, tm, T_MIN, t_init=inf, return_rows=True)
@@ -549,12 +780,11 @@ def phase_packet_policy(dev, smi) -> dict:
     rep = check_parity(SPHERE, ref, (np.where(b_k.cpu().numpy() >= 0, t_k.cpu().numpy(), np.inf),
                                      b_k.cpu().numpy(), None))
     walk_ms = _time_cuda(lambda: traverse_clusters(s_walk, 0, o, d, tm, T_MIN, float("inf")), 5)
-    k1_ms = _time_cuda(lambda: traverse_bvh8(s_k1.bvh8[0], SPHERE, o, d, tm, T_MIN, t_init=inf), 20)
     print(f"packet-tree policy, 1000 spheres ({s_walk.stats.trees[0][1]} clusters of <= "
           f"{s_walk.stats.trees[0][2]}), {LANES} bounce-like rays: cluster walk {walk_ms:.3f} ms, "
-          f"K1 {k1_ms:.4f} ms; hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal "
+          f"K1 {s3['ms']:.4f} ms (S3); hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal "
           f"{rep['id_match']:.4f} ({smi})", flush=True)
-    return {"walk_ms": walk_ms, "k1_ms": k1_ms}
+    return {"walk_ms": walk_ms, "k1_ms": s3["ms"]}
 
 
 SPANS = ("vertex.closest_hit", "closest_hit.dense", "closest_hit.packet_tree", "closest_hit.cluster_walk",
@@ -620,15 +850,14 @@ def main(argv=None) -> int:
     # the port itself: without it (the script alone) this fails before any output
     from raytracer2022_tpu_torch import cli, native
     from raytracer2022_tpu_torch.cuda_build import build
+    from raytracer2022_tpu_torch.ops import bvh8 as bvh8_mod
     from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
-    from raytracer2022_tpu_torch.ops.intersect import candidate_t
-    from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
+    from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
     from raytracer2022_tpu_torch.render.renderer import (
         MAX_SPP_SEQ, RenderConfig, launch_generator, render_batch_regen, render_sum_n,
     )
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-    from raytracer2022_tpu_torch.scene.types import Bvh8Tree
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -647,9 +876,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     so_path, log, secs = build("bvh8.cu")
     print(f"K1 build: {time.perf_counter() - t0:.2f} s (nvcc {secs:.2f} s) -> {os.path.relpath(so_path)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print(f"  ptxas: {line.strip()}")
+    print_ptxas(log)
 
     def to_dev(*xs):
         return [torch.as_tensor(x, device=dev) for x in xs]
@@ -661,18 +888,22 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return [x.cpu().numpy() for x in ref], [x.cpu().numpy() for x in got]
 
-    # --- phase 3a: all five kinds on small generated trees
+    # --- phase 3a: all five kinds on small generated trees, three t_init
+    # modes, both instantiations of the kernel
     rng = np.random.default_rng(1234)
     for kind, kname in enumerate(["SPHERE", "MSPHERE", "RECT", "TRIANGLE", "RING"]):
-        scene = small_tree_scene(SceneBuilder(), kind, rng)
-        t8 = scene.bvh8[0]
-        tree = Bvh8Tree(*(x.to(dev) for x in (t8.entries, t8.boxes, t8.prows, t8.axorder)))
+        tree = small_tree_scene(SceneBuilder(), kind, rng, device=dev).bvh8[0]
         o, d, tm = to_dev(*random_rays(rng, 4096, -30, 30))
-        for label, t_init in (("no t_init", None), ("+inf t_init", torch.full_like(tm, float("inf")))):
-            ref, got = run_both(tree, kind, o, d, tm, t_init)
-            rep = check_parity(kind, ref, got)
-            print(f"K1 parity {kname:8s} {label:12s}: hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, "
-                  f"ids equal {rep['id_match']:.4f}", flush=True)
+        finite = torch.as_tensor(rng.uniform(5, 60, 4096).astype(np.float32), device=dev)
+        for label, t_init in (("no t_init", None), ("+inf t_init", torch.full_like(tm, float("inf"))),
+                              ("finite t_init", finite)):
+            for mode in ("shared", "global"):
+                with k1_tree_memory(mode):
+                    ref, got = run_both(tree, kind, o, d, tm, t_init)
+                assert bvh8_mod.TREE_MEMORY == mode, f"K1 ran {bvh8_mod.TREE_MEMORY}, not {mode}"
+                rep = check_parity(kind, ref, got)
+                print(f"K1 parity {kname:8s} {label:13s} {mode:6s}: hits {rep['hits']}, max|dt| "
+                      f"{rep['max_abs_err']:.3g}, ids equal {rep['id_match']:.4f}", flush=True)
 
     # --- phase 3b: the stand-in mesh tree at the main path's width
     b = SceneBuilder()
@@ -683,20 +914,8 @@ def main(argv=None) -> int:
     print(f"stand-in mesh: {mesh.n_prims} prims, tree of {tree.prows.shape[0]} leaf rows, "
           f"{tree.entries.shape[0] // 8} groups", flush=True)
     cam = make_camera(**cam_kw, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(7)
-    side = 512  # 512 x 512 = 262,144 camera rays
-    ys, xs = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
-    u = (xs.reshape(-1).float() + torch.rand(side * side, generator=gen, device=dev)) / (side - 1)
-    v = (ys.reshape(-1).float() + torch.rand(side * side, generator=gen, device=dev)) / (side - 1)
-    o_c, d_c, tm_c = get_rays(cam, u, v, gen)
-    o_r, d_r, tm_r = to_dev(*random_rays(rng, 65536, 1.0, 554.0))
-    o = torch.cat([o_c, o_r], 1)
-    d = torch.cat([d_c, d_r], 1)
-    tm = torch.cat([tm_c, tm_r])
-    # finite t_init as the main path passes it: the dense windows' closest t
-    t_dense = candidate_t(mesh, o, d, tm, T_MIN, float("inf"),
-                          prim_slice=slice(mesh.stats.n_in_bvh, mesh.n_prims)).amin(dim=0)
+    o, d, tm, t_dense = mesh_rays(mesh, cam, rng)
+    o_c, d_c, tm_c = (x[..., :LANES].contiguous() for x in (o, d, tm))
     reports = {}
     for label, t_init in (("dense t_init", t_dense), ("+inf t_init", torch.full_like(tm, float("inf")))):
         ref, got = run_both(tree, TRIANGLE, o, d, tm, t_init)
@@ -704,13 +923,10 @@ def main(argv=None) -> int:
         print(f"K1 parity mesh {o.shape[1]} rays, {label}: hits {rep['hits']}, "
               f"max|dt| {rep['max_abs_err']:.3g}, ids equal {rep['id_match']:.5f}", flush=True)
 
-    # time both at one launch's shape: 262,144 camera rays, dense t_init
+    # S1, one launch's shape: 262,144 camera rays, dense t_init, rows
     ti1 = t_dense[:LANES]
-    k_ms = _time_cuda(
-        lambda: traverse_bvh8(tree, TRIANGLE, o_c, d_c, tm_c, T_MIN, t_init=ti1, return_rows=True), 20
-    )
     p_ms = _time_cuda(lambda: traverse_bvh8_plain(tree, TRIANGLE, o_c, d_c, tm_c, T_MIN, ti1), 2)
-    print(f"K1 time at {LANES} rays: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms ({smi})", flush=True)
+    print(f"K1 plain version at {LANES} camera rays: {p_ms:.3f} ms ({smi})", flush=True)
 
     # --- phase 4a: a small render, card against the CPU (plain traversal)
     def small_mesh(device):
@@ -721,17 +937,31 @@ def main(argv=None) -> int:
     card_vs_cpu(dev, "small-mesh render", small_mesh,
                 RenderConfig(width=32, height=32, spp=64, max_depth=DEPTH, background=(0.0, 0.0, 0.0)))
 
-    # --- phase 4b: the main path, the stand-in mesh through render_sum_n
-    torch.cuda.synchronize()
-    traverse_bvh8.launches = 0  # count only the main path's launches from here
+    # --- phase 4b: the main path, the stand-in mesh through render_sum_n;
+    # the rays of two of its K1 calls become S2
+    captured = []
+
+    def capturing(*a, **kw):
+        capturing.calls += 1
+        if capturing.calls in S2_CALLS:
+            captured.append([x.clone() for x in (*a[2:5], kw["t_init"])])
+        return traverse_bvh8(*a, **kw)
+
+    capturing.calls = -1
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=args.spp, max_depth=DEPTH,
                        background=(0.0, 0.0, 0.0))
     launch_log: list = []
-    t0 = time.perf_counter()
-    total, n = render_sum_n(mesh, cam, cfg, launch_log=launch_log)
     torch.cuda.synchronize()
+    bvh8_mod.traverse_bvh8 = capturing
+    bvh8_mod.LAUNCHES = 0  # count only the main path's launches from here
+    t0 = time.perf_counter()
+    try:
+        total, n = render_sum_n(mesh, cam, cfg, launch_log=launch_log)
+        torch.cuda.synchronize()
+    finally:
+        bvh8_mod.traverse_bvh8 = traverse_bvh8
     dt_mesh = time.perf_counter() - t0
-    mesh_launches = traverse_bvh8.launches
+    mesh_launches = bvh8_mod.LAUNCHES
     img = (total / n).cpu().numpy()
     assert mesh_launches > 0, "the mesh render never launched K1"
     assert np.isfinite(img).all(), "mesh render has non-finite pixels"
@@ -743,7 +973,30 @@ def main(argv=None) -> int:
     for i, rec in enumerate(launch_log):
         print(f"  launch {i}: {rec}")
 
+    # --- phase 4c: K1 at the main path's shapes.  S1: the camera rays of
+    # phase 3b; S2: the main path's bounce rays; S3: final_scene's 1000
+    # spheres with a packet tree on bounce-like rays
+    o2, d2, tm2, ti2 = (torch.cat(x, dim=-1)[..., :LANES].contiguous() for x in zip(*captured))
+    for label, t_init in (("dense t_init", ti2), ("+inf t_init", torch.full_like(tm2, float("inf")))):
+        ref, got = run_both(tree, TRIANGLE, o2, d2, tm2, t_init)
+        reports["S2 " + label] = rep = check_parity(TRIANGLE, ref, got)
+        print(f"K1 parity mesh S2 ({LANES} bounce rays of main-path calls {S2_CALLS}), {label}: hits "
+              f"{rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal {rep['id_match']:.5f}", flush=True)
+    vrng = np.random.default_rng(99)
+    for label, (o_s, d_s, tm_s, ti_s) in (("S1", (o_c, d_c, tm_c, ti1)), ("S2", (o2, d2, tm2, ti2))):
+        visits = traverse_bvh8(tree, TRIANGLE, o_s, d_s, tm_s, T_MIN, t_init=ti_s, return_visits=True)[-1]
+        check_visits(label, tree, TRIANGLE, o_s, d_s, tm_s, ti_s, visits, vrng)
+    s3_scene, o3, d3, tm3 = sphere_tree_rays(dev)
+    inf3 = torch.full_like(tm3, float("inf"))
+    shapes = {
+        "S1": (tree, TRIANGLE, o_c, d_c, tm_c, ti1, True),
+        "S2": (tree, TRIANGLE, o2, d2, tm2, ti2, True),
+        "S3": (s3_scene.bvh8[0], SPHERE, o3, d3, tm3, inf3, False),
+    }
+    k1 = {name: k1_at_shape(name, *shape, smi) for name, shape in shapes.items()}
+
     # --- phase 5: cornell_box through the CLI
+    before = bvh8_mod.LAUNCHES
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cornell.png")
         t0 = time.perf_counter()
@@ -752,8 +1005,7 @@ def main(argv=None) -> int:
         dt_cli = time.perf_counter() - t0
         assert rc == 0, f"cli returned {rc}"
         png = _read_png(out)
-    launches = traverse_bvh8.launches
-    assert launches == mesh_launches, "cornell_box has no tree, yet K1 was launched"
+    assert bvh8_mod.LAUNCHES == before, "cornell_box has no tree, yet K1 was launched"
     assert png.shape == (HEIGHT, WIDTH, 3), png.shape
     assert png.mean() > 1.0, "cornell render is black"
     mpaths_cli = WIDTH * HEIGHT * args.spp / dt_cli / 1e6
@@ -775,7 +1027,7 @@ def main(argv=None) -> int:
     phase_sort_and_trace(dev, smi)
     print(f"[phase sort and trace: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
-    policy = phase_packet_policy(dev, smi)
+    policy = phase_packet_policy(dev, smi, k1["S3"])
     print(f"[phase packet-tree policy: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     print(json.dumps({"summary": {
         "mesh_mpaths": mpaths_mesh, "cli_cornell_mpaths": mpaths_cli,
@@ -799,16 +1051,24 @@ def main(argv=None) -> int:
         profile_launch("final_scene", lambda: launch0(final["scene"], final["cam"], FINAL_SPP),
                        final["log"][0], args.profile)
 
+    s1 = k1["S1"]
     kernels = [{
         "name": "bvh8_traverse",
         "route": "cuda",
         "source": "raytracer2022_tpu_torch/csrc/bvh8.cu",
         "replaces": "raytracer2022_tpu/ops/bvh8.py:540",
-        "launches": launches,
-        "launches_by_path": {"mesh": launches, "final_scene": final["k1"]},
+        "launches": mesh_launches,
+        "launches_by_path": {"mesh": mesh_launches, "final_scene": final["k1"]},
+        "launches_per_mesh_render": mesh_launches,
         "max_abs_err": max(r["max_abs_err"] for r in reports.values()),
-        "ms": k_ms,
+        "ms": s1["ms"],
         "plain_ms": p_ms,
+        "bound_ms": s1["bound_ms"],
+        "bound_by": s1["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a BVH closest hit
+        "bound_us": s1["bound_ms"] * 1e3,
+        "share_of_bound": s1["share_of_bound"],
+        "shapes": k1,
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,9 +5,10 @@ same layout and names (``scene/``, ``ops/``, ``render/``, ``utils/``,
 ``cli.py``, ``native.py``).  It imports ``torch`` and never ``jax``.
 Plain tensor code is PyTorch; the JAX package's one Pallas kernel, the
 8-ary BVH walk, is hand-written CUDA C++ for Hopper (``csrc/bvh8.cu``,
-built with nvcc at first use).  Forward rendering only, for now: the
-differentiable path and multi-device rendering are not ported yet
-(ROADMAP.md, Queue 1 items 6 and 7).
+built with nvcc at first use).  Scenes and cameras build on the card
+unless the caller passes ``device="cpu"``.  Forward rendering only, for
+now: the differentiable path and multi-device rendering are not ported yet
+(ROADMAP.md, Queue 1 items 1 and 2).
 """
 
 from .render.camera import Camera, get_rays, make_camera

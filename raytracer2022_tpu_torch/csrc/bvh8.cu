@@ -2,38 +2,61 @@
 //
 // Replaces the TPU kernel raytracer2022_tpu/ops/bvh8.py::_make_kernel
 // (launched by traverse_bvh8 through pl.pallas_call, with the leaf
-// formulas of _leaf_test).  Wrapper and plain version:
-// raytracer2022_tpu_torch/ops/bvh8.py::traverse_bvh8.
+// formulas of _leaf_test).  Wrapper, plain version and reference walk:
+// raytracer2022_tpu_torch/ops/bvh8.py.
 //
-// What bounds it on an H100: dependent loads from the tree (each pop reads
-// one entry, then 8 boxes or 16 leaf rows, before it knows what to pop
-// next) and warp divergence (each thread walks its own stack).  The tree
-// is small next to the 50 MB L2 (the 13,056-triangle stand-in mesh has
-// 17,152 leaf rows x 24 f32 = 1.6 MB), so the loads hit L2, not HBM.
-//
-// Design, against the TPU kernel:
-//   * one thread per ray with its own stack of MAX_STACK entries in local
-//     memory (the TPU walked 128-ray packets with an SMEM stack), the ragged
-//     edge masked instead of padded to 1024 rays;
-//   * each ray picks the near-first child order of its own sign octant
-//     (the TPU used one dominant octant per packet); this only changes the
-//     visit order;
-//   * the winner is remembered as a leaf-row index and its 24 columns are
-//     copied once at the end (the TPU rewrote the row on every update);
-//   * min/max in the slab test propagate NaN as jnp.minimum/maximum do: a
-//     ray on a box plane with a zero direction component gives 0*inf = NaN
-//     and must reject that box (fminf/fmaxf would drop the NaN);
-//   * the primitive kind is a template parameter; all five kinds compile.
+// What bounds it on an H100: not the bytes (a launch of 262,144 rays moves
+// ~37 MB, ~11 us at 3.35 TB/s) but issue slots lost to divergence and
+// latency.  Each lane walks its own ray; a camera ray of the stand-in mesh
+// visits ~1.75 groups and ~0.25 leaves, yet some visit 10 groups and 6
+// leaves, and a leaf is 16 rows of ~150 dependent operations each.  With one
+// thread per ray (the first port), a warp issues its slowest lane's walk.
+// The design (PERF.md gives each step's time):
+//   * persistent warps with dynamic ray fetch (Aila and Laine, HPG 2009):
+//     the grid holds as many blocks as the SMs keep resident; each lane
+//     starts on ray blockIdx*THREADS+tid, and a warp whose idle lanes reach
+//     REFILL takes the next rays from a global counter (zeroed by the
+//     wrapper), so a long ray no longer idles 31 lanes;
+//   * a compact stack: one 32-bit word per visited group, the group id and
+//     the ordinal mask of its hit children (bit k = the child at ordinal k
+//     of the ray's octant order), popped nearest first.  Its depth is the
+//     tree's (MAX_DEPTH, checked by build_bvh8), in a per-thread column of
+//     shared memory;
+//   * each lane visits its own groups (8 slab tests) until it reaches a
+//     leaf; then the warp tests the leaves of all its lanes together,
+//     LEAF_LANES<KIND> lanes to a leaf, each lane a row (or two) against
+//     the owner's ray, and a shuffle reduction picks the winner: 16
+//     sequential rows per lane become one or two passes;
+//   * the group arrays (boxes, entries, axorder: 320 B a group) are copied
+//     once per persistent block into shared memory with bulk asynchronous
+//     copies (cp.async.bulk on an mbarrier) when they fit, and read from
+//     global memory otherwise (template parameter SH, chosen by the wrapper
+//     from rt_bvh8_shared_fits);
+//   * leaf rows stay in global memory, read as 16-byte loads through the
+//     read-only path; the pid column only on a hit;
+//   * the walk writes t, best and the winner's row index; a second small
+//     kernel gathers the winner rows column by column (coalesced stores).
+// The results are the first port's: the visit order (children near-first
+// by the ray's sign octant, a group's slab test clamped to [t_min, t_best]
+// when the group is visited), min/max propagating NaN as jnp.minimum and
+// jnp.maximum do (a ray on a box plane with a zero direction component
+// gives 0*inf = NaN and rejects the box), the smallest t in a leaf winning
+// with exact ties to the smallest prim id, and only a strictly smaller t
+// than t_best updating.
 // Built without fast math and with -fmad=false (cuda_build.py): IEEE
 // 1/0 = inf is needed, and the arithmetic is that of the plain version.
 //
 // Layouts: o, d f32[3, N] component-leading; tm, t_init f32[N] (t_init
 // already clamped to FAR); entries, axorder i32[Ng*8]; boxes f32[Ng*8, 8];
 // prows f32[Lb*16, 24].  Outputs: t f32[N], best i32[N] (-1 if nothing
-// beats t_init), rows f32[24, N] (optional, zeros where best < 0).
+// beats t_init); optional rows f32[24, N] (zeros where best < 0, needs the
+// scratch win i32[N]) and visits i32[2, N] (groups, leaves visited).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -45,31 +68,52 @@ constexpr int RING = 4;
 
 constexpr int FANOUT = 8;
 constexpr int LEAF = 16;
-constexpr int MAX_STACK = 160;
+constexpr int MAX_DEPTH = 16;  // ops/bvh8.py MAX_DEPTH
 constexpr int SENT = 0x7FFFFFFF;
+constexpr int NONE = SENT;  // no node: never a group id (< 2^24) nor a leaf (< 0)
 constexpr int NCOL = 24;
 constexpr int COL_PID = 16;
 constexpr float FAR = 1e30f;
 constexpr float NO_PID = 16777216.0f;  // 2^24, above every prim id
-constexpr int THREADS = 128;
+constexpr int THREADS = 512;
+constexpr int REFILL = 16;  // idle lanes that make a warp fetch new rays
+constexpr int STACK_BYTES = MAX_DEPTH * THREADS * 4;
+constexpr int GROUP_BYTES = FANOUT * (8 * 4 + 4 + 4);  // boxes, entries, axorder
+constexpr unsigned COPY_CHUNK = 32768;                // bytes per bulk copy
+constexpr unsigned FULL = 0xffffffffu;
 
+// min/max that return NaN when either input is NaN, as jnp.minimum and
+// jnp.maximum do (one sm_80+ instruction each; fminf/fmaxf drop the NaN)
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tm;
 };
 
+// float4 chunks of a leaf row that each kind's formula reads (columns 0-11)
+template <int KIND>
+constexpr int ROW_CHUNKS = (KIND == SPHERE || KIND == RING) ? 1 : (KIND == RECT ? 2 : 3);
+
+// lanes that test one leaf together (each LEAF / LEAF_LANES rows): 8 for
+// triangles, 16 for the other kinds, whose tests (the f64 sphere quadratic)
+// run longer per row
+template <int KIND>
+constexpr int LEAF_LANES = KIND == TRIANGLE ? 8 : 16;
+
 // Candidate t of one leaf row; FAR on a miss.  Same operations, in the same
 // order, as leaf_t in ops/bvh8.py.
 template <int KIND>
-__device__ __forceinline__ float leaf_t(const float* __restrict__ p, const Ray& r,
-                                        float t_min, float t_best) {
+__device__ __forceinline__ float leaf_t(const float* p, const Ray& r, float t_min, float t_best) {
   if (KIND == SPHERE || KIND == MSPHERE) {
     float cx = p[0], cy = p[1], cz = p[2];
     const float rad = p[3];
@@ -150,139 +194,490 @@ __device__ __forceinline__ float leaf_t(const float* __restrict__ p, const Ray& 
   }
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-bvh8_kernel(float t_min, int n, const int* __restrict__ entries,
-            const int* __restrict__ axorder, const float* __restrict__ boxes,
-            const float* __restrict__ prows, const float* __restrict__ o,
-            const float* __restrict__ d, const float* __restrict__ tm,
-            const float* __restrict__ t_init, float* __restrict__ t_out,
-            int* __restrict__ best_out, float* __restrict__ rows_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r;
-  r.ox = o[i];
-  r.oy = o[n + i];
-  r.oz = o[2 * n + i];
-  r.dx = d[i];
-  r.dy = d[n + i];
-  r.dz = d[2 * n + i];
-  r.tm = tm[i];
-  const float idx = 1.0f / r.dx;  // IEEE inf on zero components (aabb.rs:15-32)
-  const float idy = 1.0f / r.dy;
-  const float idz = 1.0f / r.dz;
-  const int oct = (r.dx > 0.0f) + 2 * (r.dy > 0.0f) + 4 * (r.dz > 0.0f);
+// ---------------------------------------------------------------------------
+// Hopper bulk copy global -> shared, completed on an mbarrier
+// ---------------------------------------------------------------------------
 
-  float t_best = t_init[i];
-  float best_pid = -1.0f;
-  int win_row = -1;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  int stack[MAX_STACK];
-  int sp = 1;
-  stack[0] = 0;
-  while (sp > 0) {
-    const int e = stack[--sp];
-    if (e >= 0) {
-      // internal group: 8-wide slab test clamped to [t_min, t_best]
-      unsigned bits = 0;
-      const float* gb = boxes + (size_t)e * FANOUT * 8;
-#pragma unroll
-      for (int j = 0; j < FANOUT; ++j) {
-        const float* b = gb + j * 8;
-        const float t0x = (b[0] - r.ox) * idx, t1x = (b[3] - r.ox) * idx;
-        const float t0y = (b[1] - r.oy) * idy, t1y = (b[4] - r.oy) * idy;
-        const float t0z = (b[2] - r.oz) * idz, t1z = (b[5] - r.oz) * idz;
-        const float tnear = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                                    nan_max(nan_min(t0z, t1z), t_min));
-        const float tfar = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                                   nan_min(nan_max(t0z, t1z), t_best));
-        bits |= (tfar >= tnear ? 1u : 0u) << j;
-      }
-      // push hit children far-to-near so the nearest pops first
-      const int perm = axorder[e * FANOUT + oct];
-#pragma unroll
-      for (int ordinal = FANOUT - 1; ordinal >= 0; --ordinal) {
-        const int jj = (perm >> (3 * ordinal)) & 7;
-        const int ent = entries[e * FANOUT + jj];
-        if (((bits >> jj) & 1u) && ent != SENT) stack[sp++] = ent;
-      }
-    } else {
-      // leaf: 16 rows; the smallest t wins, exact ties to the smallest
-      // prim id; only a strictly smaller t than t_best updates
-      const int ptr = -e - 1;
-      float tmin_leaf = FAR;
-      float sel = NO_PID;
-      int sel_row = -1;
-      for (int s = 0; s < LEAF; ++s) {
-        const float* p = prows + (size_t)(ptr + s) * NCOL;
-        const float tj = leaf_t<KIND>(p, r, t_min, t_best);
-        const float pid = p[COL_PID];
-        if (tj < tmin_leaf || (tj == tmin_leaf && pid < sel)) {
-          tmin_leaf = tj;
-          sel = pid;
-          sel_row = ptr + s;
-        }
-      }
-      if (tmin_leaf < t_best && tmin_leaf < FAR) {
-        t_best = tmin_leaf;
-        best_pid = sel;
-        win_row = sel_row;
-      }
-    }
-  }
-  t_out[i] = t_best;
-  best_out[i] = win_row >= 0 ? (int)best_pid : -1;
-  if (rows_out != nullptr) {
-    const float* w = prows + (size_t)(win_row >= 0 ? win_row : 0) * NCOL;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) rows_out[(size_t)c * n + i] = win_row >= 0 ? w[c] : 0.0f;
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
   }
 }
 
+// bytes and both addresses are multiples of 16
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  for (unsigned off = 0; off < bytes; off += COPY_CHUNK) {
+    const unsigned len = bytes - off < COPY_CHUNK ? bytes - off : COPY_CHUNK;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+            "r"(smem_addr(static_cast<char*>(dst) + off)),
+        "l"(static_cast<const char*>(src) + off), "r"(len), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the walk
+// ---------------------------------------------------------------------------
+
+struct Params {
+  const int* entries;
+  const int* axorder;
+  const float* boxes;
+  const float* prows;
+  const float* o;
+  const float* d;
+  const float* tm;
+  const float* t_init;
+  float* t_out;
+  int* best_out;
+  int* win_out;  // winner leaf row, -1 on no hit (null: rows not asked for)
+  int* visits;   // (2, n) groups and leaves visited (may be null)
+  int* counter;  // rays handed out beyond the first grid's worth (zeroed)
+  int n;
+  int ng;
+  float t_min;
+};
+
+struct Tree {
+  const int* entries;
+  const int* axorder;
+  const float* boxes;
+};
+
+// group arrays: shared memory (SH) or global memory through the read-only path
+template <bool SH>
+__device__ __forceinline__ float4 ld4(const float* p) {
+  if constexpr (SH) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+}
+
+template <bool SH>
+__device__ __forceinline__ int ldi(const int* p) {
+  if constexpr (SH) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// slab test of group g's 8 children -> ordinal mask of the hit, non-empty ones
+template <bool SH>
+__device__ __forceinline__ unsigned visit_group(const Tree& tr, int g, const Ray& r, float idx,
+                                                float idy, float idz, int oct, float t_min,
+                                                float t_best) {
+  unsigned bits = 0;
+  const float* gb = tr.boxes + (size_t)g * FANOUT * 8;
+#pragma unroll
+  for (int j = 0; j < FANOUT; ++j) {
+    const float4 lo = ld4<SH>(gb + j * 8);      // bmin x, y, z, bmax x
+    const float4 hi = ld4<SH>(gb + j * 8 + 4);  // bmax y, z, pad, pad
+    const float t0x = (lo.x - r.ox) * idx, t1x = (lo.w - r.ox) * idx;
+    const float t0y = (lo.y - r.oy) * idy, t1y = (hi.x - r.oy) * idy;
+    const float t0z = (lo.z - r.oz) * idz, t1z = (hi.y - r.oz) * idz;
+    const float tnear = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                                nan_max(nan_min(t0z, t1z), t_min));
+    const float tfar = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                               nan_min(nan_max(t0z, t1z), t_best));
+    const bool hit = tfar >= tnear && ldi<SH>(tr.entries + g * FANOUT + j) != SENT;
+    bits |= (hit ? 1u : 0u) << j;
+  }
+  const int perm = ldi<SH>(tr.axorder + g * FANOUT + oct);
+  unsigned m = 0;
+#pragma unroll
+  for (int k = 0; k < FANOUT; ++k) m |= ((bits >> ((perm >> (3 * k)) & 7)) & 1u) << k;
+  return m;
+}
+
+// the nearest remaining child of the top stack entry, or NONE
+template <bool SH>
+__device__ __forceinline__ int pop(unsigned* stack, int& sp, const Tree& tr, int oct) {
+  if (sp == 0) return NONE;
+  unsigned* top = stack + (sp - 1) * THREADS;
+  const unsigned w = *top;
+  const unsigned g = w >> 8;
+  const unsigned m = w & 0xffu;
+  const int k = __ffs(m) - 1;
+  const unsigned rest = m & (m - 1u);
+  if (rest == 0) {
+    --sp;
+  } else {
+    *top = (g << 8) | rest;
+  }
+  const int slot = (ldi<SH>(tr.axorder + g * FANOUT + oct) >> (3 * k)) & 7;
+  return ldi<SH>(tr.entries + g * FANOUT + slot);
+}
+
+// The leaf tests of a warp, LEAF_LANES<KIND> lanes to a leaf: each pass
+// takes the 32 / LEAF_LANES<KIND> lowest lanes that hold a leaf; segment k
+// of the warp tests the k-th one's 16 rows against its owner's ray and
+// t_best, and a reduction over the segment picks the smallest t, exact
+// ties to the smallest prim id (the order-free form of the scan over the
+// rows).  Only a strictly smaller t than t_best updates the owner.  Called
+// by all 32 lanes.
+template <int KIND, bool SH>
+__device__ __forceinline__ void leaf_passes(const float* __restrict__ prows, const Tree& tr,
+                                            unsigned* stack, int& sp, int oct, bool live,
+                                            const Ray& r, float t_min, int& node, float& t_best,
+                                            float& best_pid, int& win, int& n_leaves) {
+  const int lane = threadIdx.x & 31;
+  constexpr int LANES = LEAF_LANES<KIND>;
+  const int seg = lane / LANES;
+  const unsigned below = (1u << lane) - 1u;
+  for (;;) {
+    const bool mine = live && node < 0;
+    const unsigned want = __ballot_sync(FULL, mine);
+    if (want == 0) return;
+    unsigned w = want;
+    int owner = -1;
+    for (int k = 0; k <= seg; ++k) {
+      owner = w != 0 ? __ffs(w) - 1 : -1;
+      w &= w - 1u;
+    }
+    const int src = owner >= 0 ? owner : lane;
+    Ray q;
+    q.ox = __shfl_sync(FULL, r.ox, src);
+    q.oy = __shfl_sync(FULL, r.oy, src);
+    q.oz = __shfl_sync(FULL, r.oz, src);
+    q.dx = __shfl_sync(FULL, r.dx, src);
+    q.dy = __shfl_sync(FULL, r.dy, src);
+    q.dz = __shfl_sync(FULL, r.dz, src);
+    q.tm = __shfl_sync(FULL, r.tm, src);
+    const float tb = __shfl_sync(FULL, t_best, src);
+    const int first = -__shfl_sync(FULL, node, src) - 1 + lane % LANES;
+    float tj = FAR, pid = NO_PID;
+    int sel = first;
+    if (owner >= 0) {
+#pragma unroll
+      for (int k = 0; k < LEAF / LANES; ++k) {
+        const int row = first + k * LANES;
+        const float4* qr = reinterpret_cast<const float4*>(prows) + (size_t)row * (NCOL / 4);
+        float p[12];
+#pragma unroll
+        for (int c = 0; c < ROW_CHUNKS<KIND>; ++c) {
+          const float4 x = __ldg(qr + c);
+          p[4 * c] = x.x;
+          p[4 * c + 1] = x.y;
+          p[4 * c + 2] = x.z;
+          p[4 * c + 3] = x.w;
+        }
+        const float t = leaf_t<KIND>(p, q, t_min, tb);
+        // a row at FAR never updates the result, so its pid is not read
+        if (t < FAR) {
+          const float pr = __ldg(reinterpret_cast<const float*>(qr) + COL_PID);
+          if (t < tj || (t == tj && pr < pid)) {
+            tj = t;
+            pid = pr;
+            sel = row;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+      const float t2 = __shfl_xor_sync(FULL, tj, off);
+      const float p2 = __shfl_xor_sync(FULL, pid, off);
+      const int r2 = __shfl_xor_sync(FULL, sel, off);
+      if (t2 < tj || (t2 == tj && p2 < pid)) {
+        tj = t2;
+        pid = p2;
+        sel = r2;
+      }
+    }
+    // every lane of a segment now holds its leaf's winner; the owner takes it
+    const int rank = __popc(want & below);
+    const int from = (rank < 32 / LANES ? rank : 0) * LANES;
+    const float tl = __shfl_sync(FULL, tj, from);
+    const float pl = __shfl_sync(FULL, pid, from);
+    const int rl = __shfl_sync(FULL, sel, from);
+    if (mine && rank < 32 / LANES) {
+      if (tl < t_best && tl < FAR) {
+        t_best = tl;
+        best_pid = pl;
+        win = rl;
+      }
+      ++n_leaves;
+      node = pop<SH>(stack, sp, tr, oct);
+    }
+  }
+}
+
+template <int KIND, bool SH>
+__global__ void __launch_bounds__(THREADS, 1) bvh8_walk(const Params a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar;
+  unsigned* stack = reinterpret_cast<unsigned*>(smem) + threadIdx.x;  // level k at [k * THREADS]
+
+  Tree tr{a.entries, a.axorder, a.boxes};
+  if constexpr (SH) {
+    float* sb = reinterpret_cast<float*>(smem + STACK_BYTES);
+    int* se = reinterpret_cast<int*>(sb + (size_t)a.ng * FANOUT * 8);
+    int* sa = se + a.ng * FANOUT;
+    if (threadIdx.x == 0) mbar_init(&bar);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned nb = a.ng * FANOUT * 8 * 4, ne = a.ng * FANOUT * 4;
+      mbar_expect_tx(&bar, nb + 2 * ne);
+      bulk_copy(sb, a.boxes, nb, &bar);
+      bulk_copy(se, a.entries, ne, &bar);
+      bulk_copy(sa, a.axorder, ne, &bar);
+    }
+    mbar_wait(&bar, 0);
+    tr = Tree{se, sa, sb};
+  }
+
+  const int n = a.n;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int grid = gridDim.x * THREADS;
+
+  int i = -1;  // this lane's ray, -1 while idle
+  Ray r;
+  float idx = 0.0f, idy = 0.0f, idz = 0.0f, t_best = FAR, best_pid = -1.0f;
+  int oct = 0, node = NONE, sp = 0, win = -1, n_groups = 0, n_leaves = 0;
+
+  int next = blockIdx.x * THREADS + threadIdx.x;  // the ray this lane starts next
+  if (next >= n) next = -1;
+  bool more = grid < n;  // warp-uniform: rays left behind the counter
+  for (;;) {
+    if (next >= 0) {
+      i = next;
+      next = -1;
+      r.ox = a.o[i];
+      r.oy = a.o[n + i];
+      r.oz = a.o[2 * n + i];
+      r.dx = a.d[i];
+      r.dy = a.d[n + i];
+      r.dz = a.d[2 * n + i];
+      r.tm = a.tm[i];
+      idx = 1.0f / r.dx;  // IEEE inf on zero components (aabb.rs:15-32)
+      idy = 1.0f / r.dy;
+      idz = 1.0f / r.dz;
+      oct = (r.dx > 0.0f) + 2 * (r.dy > 0.0f) + 4 * (r.dz > 0.0f);
+      t_best = a.t_init[i];
+      best_pid = -1.0f;
+      win = -1;
+      node = 0;
+      sp = 0;
+      n_groups = 0;
+      n_leaves = 0;
+    }
+    if (i >= 0) {
+      while (node >= 0 && node != NONE) {
+        const unsigned m = visit_group<SH>(tr, node, r, idx, idy, idz, oct, a.t_min, t_best);
+        ++n_groups;
+        if (m != 0) {
+          if (sp == MAX_DEPTH) __trap();  // build_bvh8 refuses deeper trees
+          stack[sp * THREADS] = ((unsigned)node << 8) | m;
+          ++sp;
+        }
+        node = pop<SH>(stack, sp, tr, oct);
+      }
+    }
+    leaf_passes<KIND, SH>(a.prows, tr, stack, sp, oct, i >= 0, r, a.t_min, node, t_best, best_pid,
+                          win, n_leaves);
+    if (i >= 0 && node == NONE) {
+      a.t_out[i] = t_best;
+      a.best_out[i] = win >= 0 ? (int)best_pid : -1;
+      if (a.win_out != nullptr) a.win_out[i] = win;
+      if (a.visits != nullptr) {
+        a.visits[i] = n_groups;
+        a.visits[n + i] = n_leaves;
+      }
+      i = -1;
+    }
+    if (more) {
+      const unsigned idle = __ballot_sync(FULL, i < 0);
+      const int k = __popc(idle);
+      if (k >= REFILL) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(a.counter, k);
+        base = __shfl_sync(FULL, base, 0) + grid;
+        if (base + k >= n) more = false;
+        const int j = base + __popc(idle & below);
+        if (i < 0 && j < n) next = j;
+      }
+    }
+    if (__ballot_sync(FULL, i >= 0 || next >= 0) == 0) break;
+  }
+}
+
+// winner rows, column-major: one thread per ray, consecutive rays on
+// consecutive addresses
+__global__ void __launch_bounds__(256) bvh8_rows(int n, const int* __restrict__ win,
+                                                 const float* __restrict__ prows,
+                                                 float* __restrict__ rows_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int w = win[i];
+  const float* src = prows + (size_t)(w >= 0 ? w : 0) * NCOL;
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c) rows_out[(size_t)c * n + i] = w >= 0 ? __ldg(src + c) : 0.0f;
+}
+
+// What a launch asks of the runtime that does not change between launches
+// on one device, queried once: the SM count, the opt-in shared-memory limit
+// and the largest static shared memory of the shared-memory instantiations;
+// per instantiation, the dynamic shared memory set on it and the blocks an
+// SM holds at the size last asked for (the main path launches one tree
+// hundreds of times).
+constexpr int MAX_DEVICES = 64;
+constexpr int NKINDS = 5;
+
+struct DeviceInfo {
+  bool known = false;
+  int sms = 0, optin = 0, static_smem = 0;
+};
+
+struct LaunchInfo {
+  int smem_set = -1;          // cudaFuncAttributeMaxDynamicSharedMemorySize on the kernel
+  int smem = -1, per_sm = 0;  // blocks per SM at dynamic shared memory smem
+};
+
+std::mutex g_mutex;  // ctypes calls run without the GIL
+DeviceInfo g_device[MAX_DEVICES];
+LaunchInfo g_launch[MAX_DEVICES][NKINDS][2];
+
 template <int KIND>
-void launch(cudaStream_t stream, float t_min, int n, const int* entries, const int* axorder,
-            const float* boxes, const float* prows, const float* o, const float* d,
-            const float* tm, const float* t_init, float* t_out, int* best_out,
-            float* rows_out) {
-  const int blocks = (n + THREADS - 1) / THREADS;
-  bvh8_kernel<KIND><<<blocks, THREADS, 0, stream>>>(t_min, n, entries, axorder, boxes, prows,
-                                                    o, d, tm, t_init, t_out, best_out,
-                                                    rows_out);
+cudaError_t max_static_smem(int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, bvh8_walk<KIND, true>);
+  if (e == cudaSuccess && (int)fa.sharedSizeBytes > *out) *out = (int)fa.sharedSizeBytes;
+  return e;
+}
+
+// the current device and its DeviceInfo; call with g_mutex held
+cudaError_t device_info(int* dev, const DeviceInfo** out) {
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  DeviceInfo& di = g_device[*dev];
+  if (!di.known) {
+    int s = 0;
+    e = cudaDeviceGetAttribute(&di.sms, cudaDevAttrMultiProcessorCount, *dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&di.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (e == cudaSuccess) e = max_static_smem<SPHERE>(&s);
+    if (e == cudaSuccess) e = max_static_smem<MSPHERE>(&s);
+    if (e == cudaSuccess) e = max_static_smem<RECT>(&s);
+    if (e == cudaSuccess) e = max_static_smem<TRIANGLE>(&s);
+    if (e == cudaSuccess) e = max_static_smem<RING>(&s);
+    if (e != cudaSuccess) return e;
+    di.static_smem = s;
+    di.known = true;
+  }
+  *out = &di;
+  return cudaSuccess;
+}
+
+template <int KIND, bool SH>
+cudaError_t launch(const Params& a, float* rows_out, cudaStream_t stream) {
+  auto kern = bvh8_walk<KIND, SH>;
+  const int smem = STACK_BYTES + (SH ? a.ng * GROUP_BYTES : 0);
+  int dev = 0, sms = 0, per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(g_mutex);
+    const DeviceInfo* di = nullptr;
+    cudaError_t e = device_info(&dev, &di);
+    if (e != cudaSuccess) return e;
+    LaunchInfo& li = g_launch[dev][KIND][SH];
+    if (smem > li.smem_set) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      li.smem_set = smem;
+    }
+    if (smem != li.smem) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&li.per_sm, kern, THREADS, smem);
+      if (e != cudaSuccess) return e;
+      li.smem = smem;
+    }
+    sms = di->sms;
+    per_sm = li.per_sm;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int need = (a.n + THREADS - 1) / THREADS;
+  const int blocks = sms * per_sm < need ? sms * per_sm : need;
+  kern<<<blocks, THREADS, smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && rows_out != nullptr) {
+    bvh8_rows<<<(a.n + 255) / 256, 256, 0, stream>>>(a.n, a.win_out, a.prows, rows_out);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
+template <int KIND>
+cudaError_t launch_kind(bool shared, const Params& a, float* rows_out, cudaStream_t stream) {
+  return shared ? launch<KIND, true>(a, rows_out, stream)
+                : launch<KIND, false>(a, rows_out, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success); the wrapper
-// raises on anything else.  rows_out may be null.
-extern "C" int rt_bvh8_traverse(int kind, float t_min, int n, const int* entries,
-                                const int* axorder, const float* boxes, const float* prows,
-                                const float* o, const float* d, const float* tm,
-                                const float* t_init, float* t_out, int* best_out,
-                                float* rows_out, void* stream_ptr) {
+// 1 if a tree of ng groups fits the shared-memory instantiation on the
+// current device, 0 if not, -cudaError on a failed query.
+extern "C" int rt_bvh8_shared_fits(int ng) {
+  std::lock_guard<std::mutex> lock(g_mutex);
+  int dev = 0;
+  const DeviceInfo* di = nullptr;
+  const cudaError_t e = device_info(&dev, &di);
+  if (e != cudaSuccess) return -(int)e;
+  const long need = (long)STACK_BYTES + (long)ng * GROUP_BYTES + (long)di->static_smem;
+  return need <= di->optin ? 1 : 0;
+}
+
+// Launches the walk (and, when rows_out is given, the row gather) on
+// stream; returns cudaGetLastError() after the launches (0 on success), and
+// the wrapper raises on anything else.  rows_out needs win_out; visits may
+// be null; counter is one zeroed int.
+extern "C" int rt_bvh8_traverse(int kind, int tree_in_shared, float t_min, int n, int ng,
+                                const int* entries, const int* axorder, const float* boxes,
+                                const float* prows, const float* o, const float* d,
+                                const float* tm, const float* t_init, float* t_out,
+                                int* best_out, int* win_out, float* rows_out, int* visits,
+                                int* counter, void* stream_ptr) {
+  const Params a{entries, axorder, boxes, prows, o,       d,       tm,  t_init,
+                 t_out,   best_out, win_out, visits, counter, n, ng, t_min};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool sh = tree_in_shared != 0;
+  if (rows_out != nullptr && win_out == nullptr) return (int)cudaErrorInvalidValue;
   switch (kind) {
     case SPHERE:
-      launch<SPHERE>(stream, t_min, n, entries, axorder, boxes, prows, o, d, tm, t_init, t_out,
-                     best_out, rows_out);
-      break;
+      return (int)launch_kind<SPHERE>(sh, a, rows_out, stream);
     case MSPHERE:
-      launch<MSPHERE>(stream, t_min, n, entries, axorder, boxes, prows, o, d, tm, t_init,
-                      t_out, best_out, rows_out);
-      break;
+      return (int)launch_kind<MSPHERE>(sh, a, rows_out, stream);
     case RECT:
-      launch<RECT>(stream, t_min, n, entries, axorder, boxes, prows, o, d, tm, t_init, t_out,
-                   best_out, rows_out);
-      break;
+      return (int)launch_kind<RECT>(sh, a, rows_out, stream);
     case TRIANGLE:
-      launch<TRIANGLE>(stream, t_min, n, entries, axorder, boxes, prows, o, d, tm, t_init,
-                       t_out, best_out, rows_out);
-      break;
+      return (int)launch_kind<TRIANGLE>(sh, a, rows_out, stream);
     case RING:
-      launch<RING>(stream, t_min, n, entries, axorder, boxes, prows, o, d, tm, t_init, t_out,
-                   best_out, rows_out);
-      break;
+      return (int)launch_kind<RING>(sh, a, rows_out, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

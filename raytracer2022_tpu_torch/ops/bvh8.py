@@ -2,25 +2,31 @@
 
 Counterpart of ``raytracer2022_tpu/ops/bvh8.py``.  The host build
 (:func:`build_bvh8`, :func:`_leaf_rows`) is the JAX package's code
-unchanged: the 8-ary topology is collapsed from the host binned-SAH binary
-tree, every leaf holds 16 primitive rows of 24 f32 columns (the full param
-row, then pid/mat/flip/kind), and each group stores a near-first child
-order per ray-sign octant.
+unchanged, except that it refuses a tree deeper than the kernel's stack
+(``MAX_DEPTH`` group levels): the 8-ary topology is collapsed from the
+host binned-SAH binary tree, every leaf holds 16 primitive rows of 24 f32
+columns (the full param row, then pid/mat/flip/kind), and each group
+stores a near-first child order per ray-sign octant.
 
 :func:`traverse_bvh8` is the wrapper.  For CUDA tensors it launches the
-hand-written kernel ``csrc/bvh8.cu`` (one thread per ray, a local stack)
-and counts the launch in ``traverse_bvh8.launches``; for CPU tensors it
+hand-written kernel ``csrc/bvh8.cu`` (persistent warps that fetch rays
+from a counter, a compact per-group stack, warp-cooperative leaf tests,
+the group arrays in shared memory where they fit) and counts the launch in
+``LAUNCHES``; for CPU tensors it
 runs :func:`traverse_bvh8_plain`, a chunked brute force over the tree's
 leaf rows with the same per-kind formulas, FAR sentinel, ``t_init`` rule
 and tie rule.  Both return the same three outputs.  Exact-t ties across
 two leaves may resolve differently (the walk keeps the first leaf it
 visits, the plain version the smallest prim id), so the two agree on the
 hit mask and t, and on the id wherever no such tie exists.
+:func:`walk_bvh8_reference` is the kernel's walk in numpy, ray by ray,
+with its visit counts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import sys
 from typing import Optional
 
@@ -31,8 +37,10 @@ from ..scene.types import MSPHERE, RECT, RING, SPHERE, TRIANGLE, Bvh8Tree
 
 LEAF = 16  # prims per leaf
 FANOUT = 8
-MAX_STACK = 160  # must match csrc/bvh8.cu
+MAX_DEPTH = 16  # group levels the kernel's stack holds; must match csrc/bvh8.cu
+MAX_GROUPS = 1 << 24  # a stack word holds the group id above an 8-bit child mask
 SENT = 0x7FFFFFFF  # empty-child tag, never pushed
+NONE = SENT  # the walk's "no node left"
 # Leaf-row columns: 0-15 the primitive's full global param row, then
 # COL_PID / COL_MAT / COL_FLIP / COL_KIND; padded to 24.
 NCOL = 24
@@ -43,6 +51,9 @@ COL_KIND = 19
 FAR = 1e30
 _NO_PID = float(1 << 24)  # above every prim id (ids ride f32 exactly below 2^24)
 _PLAIN_ELEMS = 1 << 22  # (leaf rows x rays) per chunk of the plain version
+
+LAUNCHES = 0  # K1 launches in this process (traverse_bvh8 on CUDA tensors)
+TREE_MEMORY = None  # "shared" or "global": where the last launch read the group arrays
 
 
 # --------------------------------------------------------------------------
@@ -171,11 +182,11 @@ def build_bvh8(kind, params, mat_id, flip, pids, bmin, bmax, device="cpu") -> Bv
     finally:
         sys.setrecursionlimit(old)
 
-    # every pop pushes at most FANOUT-1 net entries per level
-    need = (FANOUT - 1) * max_depth + 1
-    if need > MAX_STACK:
+    # the kernel's stack holds one word per group level
+    if max_depth > MAX_DEPTH or len(groups_box) > MAX_GROUPS:
         raise ValueError(
-            f"bvh8 stack bound {need} exceeds MAX_STACK={MAX_STACK} (tree depth {max_depth})"
+            f"bvh8 tree of depth {max_depth} and {len(groups_box)} groups exceeds the "
+            f"kernel's MAX_DEPTH={MAX_DEPTH} or MAX_GROUPS={MAX_GROUPS}"
         )
 
     rows = _leaf_rows(kind, params, mat_id, flip, pids, np.stack(prim_rows))
@@ -339,23 +350,123 @@ def traverse_bvh8_plain(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_ini
 
 
 # --------------------------------------------------------------------------
+# reference walk (tests and chip_smoke.py only)
+# --------------------------------------------------------------------------
+
+
+def walk_bvh8_reference(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_init):
+    """The kernel's walk in numpy, one ray at a time -> (t f32[N], best
+    i32[N], groups visited, leaves visited, deepest stack), the last three
+    i32[N].
+
+    ``o``, ``d`` are f32[3, N], ``tm`` and ``t_init`` f32[N] (``t_init``
+    clamped to FAR), all numpy.  Same compact stack and visit order as
+    ``csrc/bvh8.cu``: a visited group pushes one entry, its hit children
+    as an ordinal mask of the ray's octant order, and the walk pops the
+    nearest remaining child of the top entry.  The slab test is the
+    kernel's f32 arithmetic (numpy's minimum/maximum propagate NaN like
+    the kernel's); a leaf's 16 rows go through :func:`leaf_t`.
+    """
+    entries = tree.entries.cpu().numpy().reshape(-1, FANOUT)
+    axorder = tree.axorder.cpu().numpy().reshape(-1, FANOUT)
+    boxes = tree.boxes.cpu().numpy().reshape(-1, FANOUT, 8)
+    prows = tree.prows.cpu()
+    f32 = np.float32
+    o, d = np.asarray(o, f32), np.asarray(d, f32)
+    tm, t_init = np.asarray(tm, f32), np.asarray(t_init, f32)
+    n = o.shape[1]
+    t_out = np.empty(n, f32)
+    best = np.full(n, -1, np.int32)
+    visits = np.zeros((3, n), np.int32)
+    tmin32, far32 = f32(t_min), f32(FAR)
+    shifts = 3 * np.arange(FANOUT)
+    for i in range(n):
+        org = o[:, i]
+        with np.errstate(divide="ignore"):
+            inv = f32(1.0) / d[:, i]
+        oct_ = int(d[0, i] > 0) + 2 * int(d[1, i] > 0) + 4 * int(d[2, i] > 0)
+        ray = [torch.tensor([[x]], dtype=torch.float32) for x in (*org, *d[:, i], tm[i])]
+        t_best = t_init[i]
+        stack: list = []  # [group, ordinal mask]
+        node = 0
+        while node != NONE:
+            if node >= 0:
+                with np.errstate(invalid="ignore", over="ignore"):
+                    t0 = (boxes[node, :, 0:3] - org) * inv
+                    t1 = (boxes[node, :, 3:6] - org) * inv
+                lo, hi = np.minimum(t0, t1), np.maximum(t0, t1)
+                tnear = np.maximum(np.maximum(lo[:, 0], lo[:, 1]), np.maximum(lo[:, 2], tmin32))
+                tfar = np.minimum(np.minimum(hi[:, 0], hi[:, 1]), np.minimum(hi[:, 2], t_best))
+                hit = (tfar >= tnear) & (entries[node] != SENT)
+                slots = (int(axorder[node, oct_]) >> shifts) & 7
+                mask = int((hit[slots].astype(np.int64) << np.arange(FANOUT)).sum())
+                visits[0, i] += 1
+                if mask:
+                    stack.append([node, mask])
+                    visits[2, i] = max(visits[2, i], len(stack))
+            else:
+                ptr = -node - 1
+                pb = prows[ptr : ptr + LEAF].T[:, :, None]
+                t_b = torch.tensor([[t_best]], dtype=torch.float32)
+                tj = leaf_t(kind, pb, *ray, t_min, t_b)[:, 0].numpy()
+                pid = pb[COL_PID, :, 0].numpy()
+                tl, sel = far32, f32(_NO_PID)
+                for s in range(LEAF):
+                    if tj[s] < far32 and (tj[s] < tl or (tj[s] == tl and pid[s] < sel)):
+                        tl, sel = tj[s], pid[s]
+                if tl < t_best and tl < far32:
+                    t_best, best[i] = tl, int(sel)
+                visits[1, i] += 1
+            node = NONE
+            if stack:
+                g, mask = stack[-1]
+                k = (mask & -mask).bit_length() - 1
+                if mask & (mask - 1):
+                    stack[-1][1] = mask & (mask - 1)
+                else:
+                    stack.pop()
+                node = int(entries[g, (int(axorder[g, oct_]) >> (3 * k)) & 7])
+        t_out[i] = t_best
+    return t_out, best, visits[0], visits[1], visits[2]
+
+
+# --------------------------------------------------------------------------
 # kernel K1 (csrc/bvh8.cu)
 # --------------------------------------------------------------------------
 
 _KINDS = (SPHERE, MSPHERE, RECT, TRIANGLE, RING)
 
 
-def _kernel_lib():
-    from ..cuda_build import load
-
-    lib = load("bvh8.cu")
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/bvh8.cu`` build on ``lib``."""
     fn = lib.rt_bvh8_traverse
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 12
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [
+        ctypes.c_void_p
+    ] * 15
+    lib.rt_bvh8_shared_fits.restype = ctypes.c_int
+    lib.rt_bvh8_shared_fits.argtypes = [ctypes.c_int]
     return lib
 
 
-def _check(x: torch.Tensor, name: str, dtype, shape, device):
+@functools.cache
+def _kernel_lib():
+    from ..cuda_build import load
+
+    return declare(load("bvh8.cu"))
+
+
+def _tree_in_shared(lib, ng: int) -> bool:
+    """Whether a tree of ``ng`` groups fits the kernel's shared-memory
+    instantiation on the current device (the tests replace this to run
+    the global-memory one)."""
+    fits = lib.rt_bvh8_shared_fits(ng)
+    if fits < 0:
+        raise RuntimeError(f"bvh8 shared-memory query failed: cudaError {-fits}")
+    return fits == 1
+
+
+def _check(x: torch.Tensor, name: str, dtype, shape, device, vectors: bool = False):
     if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
         raise ValueError(
             f"traverse_bvh8: {name} must be {dtype} {tuple(shape)} on {device}, "
@@ -363,9 +474,12 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
         )
     if not x.is_contiguous():
         raise ValueError(f"traverse_bvh8: {name} must be contiguous")
+    if vectors and x.data_ptr() % 16:  # bulk copies and 16-byte loads
+        raise ValueError(f"traverse_bvh8: {name} must be 16-byte aligned")
 
 
-def _traverse_cuda(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_init, return_rows):
+def _traverse_cuda(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_init, return_rows,
+                   return_visits):
     n = o.shape[1]
     dev = o.device
     f32, i32 = torch.float32, torch.int32
@@ -374,29 +488,41 @@ def _traverse_cuda(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_init, re
     _check(d, "d", f32, (3, n), dev)
     _check(tm, "tm", f32, (n,), dev)
     _check(t_init, "t_init", f32, (n,), dev)
-    _check(tree.entries, "entries", i32, (ng8,), dev)
-    _check(tree.axorder, "axorder", i32, (ng8,), dev)
-    _check(tree.boxes, "boxes", f32, (ng8, 8), dev)
-    _check(tree.prows, "prows", f32, (tree.prows.shape[0], NCOL), dev)
+    _check(tree.entries, "entries", i32, (ng8,), dev, vectors=True)
+    _check(tree.axorder, "axorder", i32, (ng8,), dev, vectors=True)
+    _check(tree.boxes, "boxes", f32, (ng8, 8), dev, vectors=True)
+    _check(tree.prows, "prows", f32, (tree.prows.shape[0], NCOL), dev, vectors=True)
+    if ng8 % FANOUT or ng8 // FANOUT > MAX_GROUPS:
+        raise ValueError(f"traverse_bvh8: {ng8} group slots is not a tree the kernel takes")
     t = torch.empty((n,), dtype=f32, device=dev)
     best = torch.empty((n,), dtype=i32, device=dev)
     rows = torch.empty((NCOL, n), dtype=f32, device=dev) if return_rows else None
+    win = torch.empty((n,), dtype=i32, device=dev) if return_rows else None
+    visits = torch.empty((2, n), dtype=i32, device=dev) if return_visits else None
     if n == 0:
-        return t, best, rows
+        return t, best, rows, visits
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    global LAUNCHES, TREE_MEMORY
     lib = _kernel_lib()
     with torch.cuda.device(dev):  # the launch goes to the current device
-        traverse_bvh8.launches += 1
+        shared = _tree_in_shared(lib, ng8 // FANOUT)
+        counter = torch.zeros((1,), dtype=i32, device=dev)
+        LAUNCHES += 1
+        TREE_MEMORY = "shared" if shared else "global"
         err = lib.rt_bvh8_traverse(
-            kind, t_min, n,
+            kind, int(shared), t_min, n, ng8 // FANOUT,
             tree.entries.data_ptr(), tree.axorder.data_ptr(),
             tree.boxes.data_ptr(), tree.prows.data_ptr(),
             o.data_ptr(), d.data_ptr(), tm.data_ptr(), t_init.data_ptr(),
-            t.data_ptr(), best.data_ptr(), rows.data_ptr() if return_rows else None,
+            t.data_ptr(), best.data_ptr(), ptr(win), ptr(rows), ptr(visits), counter.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"bvh8 kernel launch failed: cudaError {err}")
-    return t, best, rows
+    return t, best, rows, visits
 
 
 def traverse_bvh8(
@@ -408,13 +534,16 @@ def traverse_bvh8(
     t_min: float,
     t_init: Optional[torch.Tensor] = None,  # (N,) running closest hit (prunes)
     return_rows: bool = False,  # also return winner leaf rows f32[NCOL, N]
+    return_visits: bool = False,  # also return the kernel's visit counts i32[2, N]
 ):
-    """Closest hit in one 8-ary tree -> (t f32[N], best i32[N][, rows]).
+    """Closest hit in one 8-ary tree -> (t f32[N], best i32[N][, rows][, visits]).
 
     ``best`` is -1 where no hit beat ``t_init`` (+inf is clamped to FAR);
     ``rows`` carries the winning primitive's full leaf row (zeros where
-    ``best`` < 0).  CUDA tensors launch kernel K1; CPU tensors run
-    :func:`traverse_bvh8_plain`.
+    ``best`` < 0); ``visits`` (CUDA tensors only) holds the groups and the
+    leaves each ray visited.  CUDA tensors launch kernel K1 and record in
+    ``TREE_MEMORY`` whether its group arrays were read from shared or
+    global memory; CPU tensors run :func:`traverse_bvh8_plain`.
     """
     if kind not in _KINDS:
         raise ValueError(f"bvh8: unsupported kind {kind}")
@@ -424,14 +553,15 @@ def traverse_bvh8(
     else:
         t_init = torch.clamp(t_init, max=FAR)
     if o.device.type == "cpu":
+        if return_visits:
+            raise ValueError("traverse_bvh8: visit counts come from the kernel; on the CPU "
+                             "walk_bvh8_reference gives them")
         t, best, rows = traverse_bvh8_plain(tree, kind, o, d, tm, float(t_min), t_init)
+        visits = None
     elif o.device.type == "cuda":
-        t, best, rows = _traverse_cuda(
-            tree, kind, o, d, tm, float(t_min), t_init.contiguous(), return_rows
+        t, best, rows, visits = _traverse_cuda(
+            tree, kind, o, d, tm, float(t_min), t_init.contiguous(), return_rows, return_visits
         )
     else:
         raise ValueError(f"traverse_bvh8: no kernel for device {o.device}")
-    return (t, best, rows) if return_rows else (t, best)
-
-
-traverse_bvh8.launches = 0  # K1 launches in this process
+    return (t, best) + ((rows,) if return_rows else ()) + ((visits,) if return_visits else ())

@@ -15,6 +15,7 @@ import torch
 
 from ..ops.sampling import uniform, uniform_in_unit_disk
 from ..ops.vecmath import cross, to_unit
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +42,12 @@ def make_camera(
     focus_dist: float = 1.0,
     time0: float = 0.0,
     time1: float = 1.0,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Camera:
     """Camera::new (camera.rs:24-62), in float32 like the JAX package.
-    ``vup`` may be non-unit."""
+    ``vup`` may be non-unit.  On the card unless ``device`` says otherwise
+    (without a card it raises)."""
+    device = resolve_device(device)
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32)

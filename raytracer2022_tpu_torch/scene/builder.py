@@ -42,6 +42,7 @@ from ..scene.types import (
     SceneStats,
     TextureTable,
 )
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 POINT_COUNT = 256
 
@@ -415,9 +416,10 @@ class SceneBuilder:
         bvh_threshold: int = 512,
         cluster_size: int = 512,
         bvh8_kinds: Optional[tuple] = None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> SceneData:
-        """Compile to flat tensors on ``device``.
+        """Compile to flat tensors on ``device`` (default: the card; without
+        one it raises, see :func:`utils.device.resolve_device`).
 
         Kinds with more than ``bvh_threshold`` active prims get a
         :class:`ClusterTree` (host BVH cut into treelets of <=
@@ -428,6 +430,8 @@ class SceneBuilder:
         from ..ops.bvh8 import build_bvh8
         from ..ops.intersect import NPARAM_T
         from .bvh import build_bvh
+
+        device = resolve_device(device)
 
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=device)

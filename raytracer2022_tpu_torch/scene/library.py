@@ -3,7 +3,8 @@
 Counterpart of ``raytracer2022_tpu/scene/library.py`` with every scene
 (reference: raytracer/src/scene.rs).  Each function returns a
 :class:`SceneBundle` (compiled scene, camera kwargs, background), and
-compiles on the host for any ``device``, and every scene renders.
+compiles on the host for any ``device`` (default: the card; without one
+it raises), and every scene renders.
 ``earth``, ``final_scene``, ``obj_uv_demo`` and ``wwscene`` read assets
 from ``RT2022_SOURCE_DIR`` (default: ``assets/`` at the repository root),
 which the repository does not hold; image files need Pillow.
@@ -17,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.device import DEFAULT_DEVICE
 from .builder import SceneBuilder
 from .types import SceneData
 
@@ -48,7 +50,7 @@ def _book_camera(lookfrom, lookat, vfov, aperture=0.0, focus=10.0, aspect=16 / 9
     )
 
 
-def random_scene(seed: int = 0, bvh_threshold: int = 4096, device="cpu") -> SceneBundle:
+def random_scene(seed: int = 0, bvh_threshold: int = 4096, device=DEFAULT_DEVICE) -> SceneBundle:
     """Book1 final scene + motion blur (scene.rs:22-84).  The default
     threshold keeps the 530-prim field dense, as the JAX package does."""
     b = SceneBuilder(seed=seed)
@@ -82,7 +84,7 @@ def random_scene(seed: int = 0, bvh_threshold: int = 4096, device="cpu") -> Scen
     )
 
 
-def two_spheres(seed: int = 0, device="cpu") -> SceneBundle:
+def two_spheres(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
     """Checker spheres (scene.rs:87-105)."""
     b = SceneBuilder(seed=seed)
     checker = b.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
@@ -93,7 +95,7 @@ def two_spheres(seed: int = 0, device="cpu") -> SceneBundle:
     return SceneBundle(b.finalize(device=device), cam, background=None, name="two_spheres")
 
 
-def two_perlin_spheres(seed: int = 0, device="cpu") -> SceneBundle:
+def two_perlin_spheres(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
     """Perlin marble spheres (scene.rs:108-124)."""
     b = SceneBuilder(seed=seed)
     pertext = b.noise(4.0)
@@ -105,7 +107,7 @@ def two_perlin_spheres(seed: int = 0, device="cpu") -> SceneBundle:
 
 
 def earth(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device="cpu"
+    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """Earth-textured sphere (scene.rs:127-140)."""
     b = SceneBuilder(seed=seed)
@@ -115,7 +117,7 @@ def earth(
     return SceneBundle(b.finalize(device=device), cam, background=None, name="earth")
 
 
-def simple_light(seed: int = 0, device="cpu") -> SceneBundle:
+def simple_light(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
     """Perlin spheres + one XY rect light (scene.rs:143-162)."""
     b = SceneBuilder(seed=seed)
     pertext = b.noise(4.0)
@@ -128,7 +130,7 @@ def simple_light(seed: int = 0, device="cpu") -> SceneBundle:
     return SceneBundle(b.finalize(device=device), cam, background=(0.0, 0.0, 0.0), name="simple_light")
 
 
-def cornell_box(seed: int = 0, device="cpu") -> SceneBundle:
+def cornell_box(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
     """Book3 Cornell box with one-sided strong light (scene.rs:165-196)."""
     b = SceneBuilder(seed=seed)
     light = b.rect_xz(213, 343, 127, 232, 554, b.diffuse_light((60.0, 60.0, 60.0)))
@@ -146,7 +148,7 @@ def cornell_box(seed: int = 0, device="cpu") -> SceneBundle:
     return SceneBundle(b.finalize(device=device), cam, background=(0.0, 0.0, 0.0), name="cornell_box")
 
 
-def cornell_box_book(seed: int = 0, device="cpu") -> SceneBundle:
+def cornell_box_book(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
     """Book3 cornell as the committed goldens were rendered (book colors:
     green at x=555, light (15,15,15) — the frozen scene.rs:165-196 later
     swapped red/green and brightened the light to 60; the goldens
@@ -168,7 +170,7 @@ def cornell_box_book(seed: int = 0, device="cpu") -> SceneBundle:
     return SceneBundle(b.finalize(device=device), cam, background=(0.0, 0.0, 0.0), name="cornell_box_book")
 
 
-def cornell_smoke(seed: int = 0, device="cpu") -> SceneBundle:
+def cornell_smoke(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
     """Cornell box with two smoke boxes (scene.rs:199-257)."""
     b = SceneBuilder(seed=seed)
     red = b.lambertian((0.65, 0.05, 0.05))
@@ -198,7 +200,7 @@ def cornell_smoke(seed: int = 0, device="cpu") -> SceneBundle:
 
 
 def final_scene(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device="cpu"
+    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """Book2 final composite (scene.rs:260-362)."""
     b = SceneBuilder(seed=seed)
@@ -283,7 +285,7 @@ def _import_obj(
 
 
 def obj_uv_demo(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device="cpu"
+    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """Smoke scene for the ObjTexture path (TEX_OBJUV): an earth-textured
     uv-mapped quad mesh under the sky gradient.  Exercises the full chain
@@ -311,7 +313,7 @@ def obj_uv_demo(
 
 
 def wwscene(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device="cpu"
+    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """The active composite scene (scene.rs:468-571): Saturn system with
     rings, planets, stars, and the OBJ shuttle.

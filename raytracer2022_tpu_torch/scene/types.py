@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
+
 # Primitive kinds
 SPHERE = 0
 MSPHERE = 1
@@ -200,8 +202,9 @@ class SceneData:
         return out
 
     @classmethod
-    def from_numpy(cls, arrays: dict, stats, device="cpu") -> "SceneData":
-        """Scene from numpy arrays plus static stats.
+    def from_numpy(cls, arrays: dict, stats, device=DEFAULT_DEVICE) -> "SceneData":
+        """Scene from numpy arrays plus static stats, on ``device`` (default:
+        the card; without one it raises).
 
         ``arrays`` is nested like :meth:`to_numpy`'s result: the top-level
         tensors by field name, ``materials``/``textures`` as dicts,
@@ -209,6 +212,7 @@ class SceneData:
         None.  ``stats`` is a :class:`SceneStats` or any object with the
         same fields (the JAX package's compiled scene hands over its own).
         """
+        device = resolve_device(device)
         if not isinstance(stats, SceneStats):
             stats = SceneStats(
                 **{f.name: getattr(stats, f.name) for f in dataclasses.fields(SceneStats)}

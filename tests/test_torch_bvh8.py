@@ -1,6 +1,7 @@
-"""K1 (8-ary BVH walk): the port's plain version against the JAX Pallas
-kernel in interpret mode.  The CUDA kernel against the plain version is in
-tests/test_torch_kernels.py, which runs on the card without JAX.
+"""K1 (8-ary BVH walk): the port's plain version and its reference walk
+against the JAX Pallas kernel in interpret mode.  The CUDA kernel against
+the plain version and the reference walk is in tests/test_torch_kernels.py,
+which runs on the card without JAX.
 
 Parity contract (chip_smoke.check_parity): the same hit mask, t within
 rtol/atol 2e-5, at least 99% of winner ids equal (RING: t only), and the
@@ -16,7 +17,10 @@ import chip_smoke
 from raytracer2022_tpu.ops.bvh8 import traverse_bvh8 as jax_traverse_bvh8
 from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
 from raytracer2022_tpu.scene.types import MSPHERE, RECT, RING, SPHERE, TRIANGLE
-from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
+from raytracer2022_tpu_torch.ops import bvh8
+from raytracer2022_tpu_torch.ops.bvh8 import (
+    FAR, SENT, traverse_bvh8, traverse_bvh8_plain, walk_bvh8_reference,
+)
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
 
 torch.set_num_threads(1)
@@ -28,7 +32,7 @@ KINDS = [SPHERE, MSPHERE, RECT, TRIANGLE, RING]
 def _scenes(kind, seed=1234):
     """The same generated single-kind scene through both compilers."""
     js = chip_smoke.small_tree_scene(JaxBuilder(), kind, np.random.default_rng(seed))
-    ts = chip_smoke.small_tree_scene(TorchBuilder(), kind, np.random.default_rng(seed))
+    ts = chip_smoke.small_tree_scene(TorchBuilder(), kind, np.random.default_rng(seed), device="cpu")
     rays = chip_smoke.random_rays(np.random.default_rng(seed + 1), 256, -30, 30)
     return js, ts, rays
 
@@ -121,3 +125,94 @@ def test_plain_chunking_does_not_change_the_result(monkeypatch):
     chunked = traverse_bvh8_plain(ts.bvh8[0], RECT, o, d, tm, T_MIN, ti)
     for a, b in zip(full, chunked):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _walk(tree, kind, rays, t_init=None):
+    n = rays[2].shape[0]
+    ti = np.full(n, FAR, np.float32) if t_init is None else np.minimum(t_init, np.float32(FAR))
+    return walk_bvh8_reference(tree, kind, *rays, T_MIN, ti)
+
+
+def _tree_depth(tree) -> int:
+    e = tree.entries.numpy().reshape(-1, 8)
+
+    def depth(g):
+        return 1 + max([depth(int(c)) for c in e[g] if 0 <= c != SENT] or [0])
+
+    return depth(0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_reference_walk_matches_plain_and_jax(kind):
+    """The kernel's walk, ray by ray in numpy, finds the plain version's
+    and the JAX kernel's hits; it visits the root first and never stacks
+    deeper than the tree."""
+    js, ts, rays = _scenes(kind)
+    t, best, groups, leaves, deepest = _walk(ts.bvh8[0], kind, rays)
+    walk = (t, best, None)
+    plain = _port(ts.bvh8[0], kind, rays)
+    rep = chip_smoke.check_parity(kind, (plain[0], plain[1], None), walk)
+    assert rep["hits"] > 0
+    chip_smoke.check_parity(kind, _jax(js.bvh8[0], kind, rays), walk)
+    assert (groups >= 1).all() and (leaves[best >= 0] >= 1).all()
+    assert deepest.max() <= _tree_depth(ts.bvh8[0]) <= bvh8.MAX_DEPTH
+
+
+def _small_mesh_rays(cam_kw, n=384, seed=21):
+    """Half camera-like rays from the camera towards the torus, half
+    bounce-like rays from inside the box."""
+    rng = np.random.default_rng(seed)
+    o_r, d_r, tm_r = chip_smoke.random_rays(rng, n // 2, 1.0, 554.0)
+    target = rng.uniform(np.array(chip_smoke.TORUS_CENTER) - 180, np.array(chip_smoke.TORUS_CENTER) + 180,
+                         (n // 2, 3)).T
+    o_c = np.broadcast_to(np.asarray(cam_kw["lookfrom"], np.float32)[:, None], (3, n // 2))
+    d_c = (target - o_c).astype(np.float32)
+    tm_c = rng.uniform(0, 1, n // 2).astype(np.float32)
+    return (np.concatenate([o_c, o_r], 1).astype(np.float32), np.concatenate([d_c, d_r], 1),
+            np.concatenate([tm_c, tm_r]))
+
+
+@pytest.mark.parametrize("t_init", ["inf", "finite"])
+def test_reference_walk_on_small_mesh(t_init):
+    """The small stand-in mesh (576 triangles) with +inf and with a finite
+    running t_init, as closest_hit passes the dense windows' result."""
+    jb, tb = JaxBuilder(), TorchBuilder()
+    cam_kw = chip_smoke.stand_in_mesh_scene(jb, 24, 12)
+    chip_smoke.stand_in_mesh_scene(tb, 24, 12)
+    js, ts = jb.finalize(), tb.finalize(device="cpu")
+    rays = _small_mesh_rays(cam_kw)
+    n = rays[2].shape[0]
+    rng = np.random.default_rng(3)
+    ti = {"inf": np.full(n, np.inf, np.float32),
+          "finite": rng.uniform(200.0, 1200.0, n).astype(np.float32)}[t_init]
+    t, best, groups, leaves, deepest = _walk(ts.bvh8[0], TRIANGLE, rays, ti)
+    walk = (t, best, None)
+    plain = _port(ts.bvh8[0], TRIANGLE, rays, ti)
+    rep = chip_smoke.check_parity(TRIANGLE, (plain[0], plain[1], None), walk)
+    assert rep["hits"] > 50 and rep["max_abs_err"] == 0.0
+    chip_smoke.check_parity(TRIANGLE, _jax(js.bvh8[0], TRIANGLE, rays, ti), walk)
+    np.testing.assert_array_equal(t[best < 0], np.minimum(ti, np.float32(FAR))[best < 0])
+    assert groups.max() > 1 and leaves.max() > 1
+    assert deepest.max() <= _tree_depth(ts.bvh8[0])
+
+
+def _mesh_tree():
+    tb = TorchBuilder()
+    chip_smoke.stand_in_mesh_scene(tb, 24, 12)
+    return tb.finalize(device="cpu").bvh8[0]
+
+
+def test_build_refuses_a_tree_deeper_than_the_kernel_stack(monkeypatch):
+    """build_bvh8 checks the kernel's stack bound: one word per group level."""
+    depth = _tree_depth(_mesh_tree())
+    assert 2 <= depth <= bvh8.MAX_DEPTH
+    monkeypatch.setattr(bvh8, "MAX_DEPTH", depth - 1)
+    with pytest.raises(ValueError, match="MAX_DEPTH"):
+        _mesh_tree()
+
+
+def test_visit_counts_need_the_kernel():
+    _, ts, rays = _scenes(TRIANGLE)
+    o, d, tm = (torch.as_tensor(x) for x in rays)
+    with pytest.raises(ValueError, match="walk_bvh8_reference"):
+        traverse_bvh8(ts.bvh8[0], TRIANGLE, o, d, tm, T_MIN, return_visits=True)

@@ -22,8 +22,8 @@ import torch
 import chip_smoke
 from raytracer2022_tpu.ops import intersect as jx
 from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
+from raytracer2022_tpu_torch.ops import bvh8
 from raytracer2022_tpu_torch.ops import intersect as tx
-from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
 from raytracer2022_tpu_torch.scene.types import BOX, SPHERE, TRIANGLE
 
@@ -35,7 +35,7 @@ GRAZING = 1e-4  # disc / half_b^2 below this: JAX's f32 root is ill-conditioned
 SIGN_FLIP = 1e-6  # below this JAX's f32 discriminant may even change sign
 
 
-def cluster_scene(b, kind=SPHERE, n=640, cluster_size=128, floor=True):
+def cluster_scene(b, kind=SPHERE, n=640, cluster_size=128, floor=True, **finalize_kw):
     """``n`` rotated and translated spheres or boxes (final_scene's cluster
     transform), one tree cut into ceil(n / cluster_size)-ish clusters, and a
     floor rect in the dense tail."""
@@ -49,7 +49,7 @@ def cluster_scene(b, kind=SPHERE, n=640, cluster_size=128, floor=True):
     b.translate(ids, (-100, 270, 395))
     if floor:
         b.rect_xz(-1000, 1000, -1000, 1000, 0, white)
-    return b.finalize(cluster_size=cluster_size)
+    return b.finalize(cluster_size=cluster_size, **finalize_kw)
 
 
 def _rays(seed, n=4096):
@@ -111,7 +111,7 @@ def assert_hits_match(kind_of, params, o, d, t_ref, b_ref, t_got, b_got, min_sam
 
 @pytest.mark.parametrize("kind", [SPHERE, BOX])
 def test_cluster_walk_matches_jax(kind):
-    js, ts = cluster_scene(JaxBuilder(), kind), cluster_scene(TorchBuilder(), kind)
+    js, ts = cluster_scene(JaxBuilder(), kind), cluster_scene(TorchBuilder(), kind, device="cpu")
     (tk, n_clusters, m, _, has_xf), = ts.stats.trees
     assert tk == kind and n_clusters >= 4 and m == 128
     assert has_xf == (kind == BOX)  # sphere transforms bake into the params
@@ -129,7 +129,7 @@ def test_cluster_walk_matches_jax(kind):
 def test_cluster_walk_t_init_prunes():
     """A finite t_init is kept where nothing in the tree is closer, and the
     tree's hit replaces it where one is."""
-    ts = cluster_scene(TorchBuilder(), SPHERE, floor=False)
+    ts = cluster_scene(TorchBuilder(), SPHERE, floor=False, device="cpu")
     o, d, tm = (torch.as_tensor(x) for x in _rays(3))
     t_free, b_free = tx.traverse_clusters(ts, 0, o, d, tm, T_MIN, float("inf"))
     t_init = torch.as_tensor(np.random.default_rng(4).uniform(100, 700, o.shape[1]).astype(np.float32))
@@ -140,7 +140,7 @@ def test_cluster_walk_t_init_prunes():
     np.testing.assert_array_equal(b_got[closer].numpy(), b_free[closer].numpy())
 
 
-def _mixed(b):
+def _mixed(b, **finalize_kw):
     """The small stand-in mesh (a TRIANGLE tree with a packet tree) plus a
     rotated sphere cluster (a SPHERE tree, cluster walk) in one scene."""
     cam = chip_smoke.stand_in_mesh_scene(b, 24, 12)
@@ -149,7 +149,7 @@ def _mixed(b):
     ids = [b.sphere(c, 8, white) for c in rng.uniform(0, 165, (600, 3))]
     b.rotate_y(ids, 15.0)
     b.translate(ids, (300, 30, 150))
-    return b.finalize(cluster_size=256), cam
+    return b.finalize(cluster_size=256, **finalize_kw), cam
 
 
 def test_mixed_scene_closest_hit_matches_jax():
@@ -157,16 +157,16 @@ def test_mixed_scene_closest_hit_matches_jax():
     through traverse_bvh8 (its plain version here), the sphere tree through
     the cluster walk, winners fetched from the tables; JAX walks both as
     clusters."""
-    (js, _), (ts, _) = _mixed(JaxBuilder()), _mixed(TorchBuilder())
+    (js, _), (ts, _) = _mixed(JaxBuilder()), _mixed(TorchBuilder(), device="cpu")
     kinds = [t[0] for t in ts.stats.trees]
     assert sorted(kinds) == [SPHERE, TRIANGLE]
     assert [t8 is not None for t8 in ts.bvh8] == [k == TRIANGLE for k in kinds]
     o, d, tm = chip_smoke.random_rays(np.random.default_rng(7), 4096, 1.0, 554.0)
     h_ref, s_ref = jx.closest_hit(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm), T_MIN, jnp.inf,
                                   jax.random.PRNGKey(0))
-    before = traverse_bvh8.launches
+    before = bvh8.LAUNCHES
     h_got, s_got = tx.closest_hit(ts, *(torch.as_tensor(x) for x in (o, d, tm)), T_MIN, float("inf"))
-    assert traverse_bvh8.launches == before  # CPU tensors: the plain version, not K1
+    assert bvh8.LAUNCHES == before  # CPU tensors: the plain version, not K1
     kind_of = ts.kind.numpy()
     t_ref = np.where(h_ref.hit, h_ref.t, np.inf)
     t_got = np.where(h_got.hit.numpy(), h_got.t.numpy(), np.inf)

@@ -25,7 +25,7 @@ RTOL_T = 2e-5  # as tests/test_bvh8.py: f32 formulas, XLA fuses multiply-adds
 KINDS = [SPHERE, MSPHERE, RECT, TRIANGLE, RING, BOX]
 
 
-def _dense_scene(builder, kinds, seed=7, n_each=24):
+def _dense_scene(builder, kinds, seed=7, n_each=24, **finalize_kw):
     """Random dense prims of the given kinds (below the tree threshold)."""
     rng = np.random.default_rng(seed)
     b = builder
@@ -55,11 +55,11 @@ def _dense_scene(builder, kinds, seed=7, n_each=24):
                 pid = b.box(c, c + rng.uniform(1, 6, 3), m)[0]
             if i % 5 == 0:
                 b.flip_face(pid)
-    return b.finalize()
+    return b.finalize(**finalize_kw)
 
 
 def _both(kinds, seed=7):
-    return _dense_scene(JaxBuilder(), kinds, seed), _dense_scene(TorchBuilder(), kinds, seed)
+    return _dense_scene(JaxBuilder(), kinds, seed), _dense_scene(TorchBuilder(), kinds, seed, device="cpu")
 
 
 def _rays(seed=11, n=N_RAYS):
@@ -145,7 +145,7 @@ def test_tree_closest_hit_matches_jax_cluster_walk():
     jb, tb = JaxBuilder(), TorchBuilder()
     chip_smoke.stand_in_mesh_scene(jb, 24, 12)
     chip_smoke.stand_in_mesh_scene(tb, 24, 12)
-    js, ts = jb.finalize(), tb.finalize()
+    js, ts = jb.finalize(), tb.finalize(device="cpu")
     o, d, tm = chip_smoke.random_rays(np.random.default_rng(21), N_RAYS, 1.0, 554.0)
     h_ref, s_ref = jx.closest_hit(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm),
                                   T_MIN, jnp.inf, jax.random.PRNGKey(0))
@@ -159,7 +159,7 @@ def test_unported_scene_parts_raise():
     """cornell_smoke (media with rotated box boundaries), which the port
     once refused, now runs closest_hit: where neither package's medium
     scattered the ray, both find the same surface hit."""
-    js, smoke = jlib.cornell_smoke().scene, tlib.cornell_smoke().scene
+    js, smoke = jlib.cornell_smoke().scene, tlib.cornell_smoke(device="cpu").scene
     o, d, tm = _rays(n=2048)
     o = (np.abs(o) % 500 + 20).astype(np.float32)  # origins inside the box
     h_ref, _ = jx.closest_hit(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm), T_MIN, jnp.inf,

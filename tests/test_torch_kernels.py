@@ -1,11 +1,13 @@
-"""Kernel K1 on the card against its plain PyTorch version.
+"""Kernel K1 on the card against its plain PyTorch version, and its visit
+counts against the reference walk.
 
 No JAX here, so the file also runs on a card machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tests marked ``cuda`` skip without a CUDA device; the parity contract is
-chip_smoke.check_parity.
+chip_smoke.check_parity.  Kernel tests run both instantiations: the group
+arrays in shared memory (where they fit) and in global memory.
 """
 
 import numpy as np
@@ -13,8 +15,8 @@ import pytest
 import torch
 
 import chip_smoke
-from raytracer2022_tpu_torch.ops import intersect
-from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
+from raytracer2022_tpu_torch.ops import bvh8, intersect
+from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain, walk_bvh8_reference
 from raytracer2022_tpu_torch.ops.intersect import closest_hit
 from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder
@@ -32,51 +34,92 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(params=["shared", "global"])
+def tree_memory(request, monkeypatch):
+    """The kernel's instantiation: ``global`` takes the global-memory one
+    even where the tree fits in shared memory."""
+    if request.param == "global":
+        monkeypatch.setattr(bvh8, "_tree_in_shared", lambda lib, ng: False)
+    return request.param
+
+
 def _on(tree: Bvh8Tree, device) -> Bvh8Tree:
     return Bvh8Tree(*(x.to(device) for x in (tree.entries, tree.boxes, tree.prows, tree.axorder)))
 
 
-def _both(tree, kind, o, d, tm, t_init, device):
-    """(plain version on the CPU, kernel on the card) as numpy triples."""
+def _both(tree, kind, o, d, tm, t_init, device, plain_device="cpu"):
+    """(plain version, kernel on the card) as numpy triples, and the
+    kernel's visit counts."""
     ti = torch.full_like(tm, FAR) if t_init is None else torch.clamp(t_init, max=FAR)
-    ref = traverse_bvh8_plain(tree, kind, o, d, tm, T_MIN, ti)
-    before = traverse_bvh8.launches
+    p = plain_device
+    ref = traverse_bvh8_plain(_on(tree, p), kind, o.to(p), d.to(p), tm.to(p), T_MIN, ti.to(p))
+    before = bvh8.LAUNCHES
     got = traverse_bvh8(
         _on(tree, device), kind, o.to(device), d.to(device), tm.to(device), T_MIN,
-        t_init=None if t_init is None else t_init.to(device), return_rows=True,
+        t_init=None if t_init is None else t_init.to(device), return_rows=True, return_visits=True,
     )
-    assert traverse_bvh8.launches == before + 1
-    return [x.numpy() for x in ref], [x.cpu().numpy() for x in got]
+    assert bvh8.LAUNCHES == before + 1
+    return [x.cpu().numpy() for x in ref], [x.cpu().numpy() for x in got[:3]], got[3].cpu().numpy()
+
+
+def _assert_visits(tree, kind, o, d, tm, t_init, visits, sample):
+    """The kernel's visit counts equal the reference walk's on ``sample``."""
+    ti = torch.full_like(tm, FAR) if t_init is None else torch.clamp(t_init, max=FAR)
+    t, best, groups, leaves, _ = walk_bvh8_reference(
+        tree, kind, *(x[..., sample].numpy() for x in (o, d, tm)), T_MIN, ti[sample].numpy()
+    )
+    np.testing.assert_array_equal(visits[0, sample], groups)
+    np.testing.assert_array_equal(visits[1, sample], leaves)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("t_init", ["none", "inf", "finite"])
-def test_kernel_matches_plain(cuda_device, kind, t_init):
+def test_kernel_matches_plain(cuda_device, tree_memory, kind, t_init):
     rng = np.random.default_rng(1234 + kind)
-    scene = chip_smoke.small_tree_scene(SceneBuilder(), kind, rng)
+    scene = chip_smoke.small_tree_scene(SceneBuilder(), kind, rng, device="cpu")
     o, d, tm = (torch.as_tensor(x) for x in chip_smoke.random_rays(rng, 4096, -30, 30))
     ti = {
         "none": None,
         "inf": torch.full_like(tm, float("inf")),
         "finite": torch.as_tensor(rng.uniform(5, 60, 4096).astype(np.float32)),
     }[t_init]
-    ref, got = _both(scene.bvh8[0], kind, o, d, tm, ti, cuda_device)
+    ref, got, visits = _both(scene.bvh8[0], kind, o, d, tm, ti, cuda_device)
+    assert bvh8.TREE_MEMORY == tree_memory
     rep = chip_smoke.check_parity(kind, ref, got)
     assert rep["hits"] > 0
+    _assert_visits(scene.bvh8[0], kind, o, d, tm, ti, visits, np.arange(0, 4096, 16))
 
 
 @pytest.mark.cuda
 def test_kernel_on_stand_in_mesh_camera_rays(cuda_device):
     b = SceneBuilder()
-    cam = make_camera(**chip_smoke.stand_in_mesh_scene(b, 24, 12))
-    scene = b.finalize()
+    cam = make_camera(**chip_smoke.stand_in_mesh_scene(b, 24, 12), device="cpu")
+    scene = b.finalize(device="cpu")
     gen = torch.Generator().manual_seed(0)
     uv = torch.rand((2, 64 * 64), generator=gen)
     o, d, tm = get_rays(cam, uv[0], uv[1], gen)
-    ref, got = _both(scene.bvh8[0], TRIANGLE, o, d, tm, None, cuda_device)
+    ref, got, _ = _both(scene.bvh8[0], TRIANGLE, o, d, tm, None, cuda_device)
     rep = chip_smoke.check_parity(TRIANGLE, ref, got)
     assert rep["hits"] > 100 and rep["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_main_path_width(cuda_device, tree_memory):
+    """262,144 rays, several per lane of the persistent grid: every ray is
+    fetched once and walked as the reference walks it."""
+    b = SceneBuilder()
+    chip_smoke.stand_in_mesh_scene(b, 24, 12)
+    scene = b.finalize(device="cpu")
+    rng = np.random.default_rng(8)
+    o, d, tm = (torch.as_tensor(x) for x in chip_smoke.random_rays(rng, chip_smoke.LANES, 1.0, 554.0))
+    ti = torch.as_tensor(rng.uniform(100.0, 900.0, chip_smoke.LANES).astype(np.float32))
+    ref, got, visits = _both(scene.bvh8[0], TRIANGLE, o, d, tm, ti, cuda_device, plain_device=cuda_device)
+    assert bvh8.TREE_MEMORY == tree_memory
+    rep = chip_smoke.check_parity(TRIANGLE, ref, got)
+    assert rep["hits"] > 10000
+    assert (visits[0] >= 1).all()
+    _assert_visits(scene.bvh8[0], TRIANGLE, o, d, tm, ti, visits, rng.choice(chip_smoke.LANES, 512, replace=False))
 
 
 @pytest.mark.cuda
@@ -84,12 +127,12 @@ def test_closest_hit_on_the_card_goes_through_the_kernel(cuda_device):
     b = SceneBuilder()
     chip_smoke.stand_in_mesh_scene(b, 24, 12)
     rays = [torch.as_tensor(x) for x in chip_smoke.random_rays(np.random.default_rng(5), 2048, 1.0, 554.0)]
-    cpu_scene = b.finalize()
+    cpu_scene = b.finalize(device="cpu")
     gpu_scene = b.finalize(device=cuda_device)
     h_cpu, _ = closest_hit(cpu_scene, *rays, T_MIN, float("inf"))
-    before = traverse_bvh8.launches
+    before = bvh8.LAUNCHES
     h_gpu, _ = closest_hit(gpu_scene, *(x.to(cuda_device) for x in rays), T_MIN, float("inf"))
-    assert traverse_bvh8.launches == before + 1
+    assert bvh8.LAUNCHES == before + 1
     np.testing.assert_array_equal(h_gpu.hit.cpu().numpy(), h_cpu.hit.numpy())
     hit = h_cpu.hit.numpy()
     np.testing.assert_allclose(h_gpu.t.cpu().numpy()[hit], h_cpu.t.numpy()[hit], rtol=2e-5, atol=2e-5)
@@ -123,10 +166,10 @@ def test_mixed_scene_launches_k1_and_walks_the_transformed_tree(cuda_device, mon
     assert sorted(kinds) == [TRIANGLE, BOX] and [t[4] for t in gpu_scene.stats.trees] == [k == BOX for k in kinds]
     rays = [torch.as_tensor(x) for x in chip_smoke.random_rays(np.random.default_rng(5), 4096, 1.0, 554.0)]
     h_cpu, _ = closest_hit(cpu_scene, *rays, T_MIN, float("inf"))
-    before = traverse_bvh8.launches
+    before = bvh8.LAUNCHES
     walks.clear()
     h_gpu, _ = closest_hit(gpu_scene, *(x.to(cuda_device) for x in rays), T_MIN, float("inf"))
-    assert traverse_bvh8.launches == before + 1
+    assert bvh8.LAUNCHES == before + 1
     assert walks == [kinds.index(BOX)]
     hit = h_cpu.hit.numpy()
     np.testing.assert_array_equal(h_gpu.hit.cpu().numpy(), hit)
@@ -141,7 +184,7 @@ def test_mixed_scene_launches_k1_and_walks_the_transformed_tree(cuda_device, mon
 
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
-    scene = chip_smoke.small_tree_scene(SceneBuilder(), TRIANGLE, np.random.default_rng(0))
+    scene = chip_smoke.small_tree_scene(SceneBuilder(), TRIANGLE, np.random.default_rng(0), device="cpu")
     tree = _on(scene.bvh8[0], cuda_device)
     o, d, tm = (torch.as_tensor(x, device=cuda_device) for x in chip_smoke.random_rays(np.random.default_rng(1), 64, -30, 30))
     with pytest.raises(ValueError, match="float32"):
@@ -153,7 +196,7 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
 
 
 def test_unsupported_kind_is_refused():
-    scene = chip_smoke.small_tree_scene(SceneBuilder(), TRIANGLE, np.random.default_rng(0))
+    scene = chip_smoke.small_tree_scene(SceneBuilder(), TRIANGLE, np.random.default_rng(0), device="cpu")
     o, d, tm = (torch.as_tensor(x) for x in chip_smoke.random_rays(np.random.default_rng(1), 8, -30, 30))
     with pytest.raises(ValueError, match="unsupported kind"):
         traverse_bvh8(scene.bvh8[0], MEDIUM, o, d, tm, T_MIN)

@@ -69,14 +69,14 @@ def _both(name):
         jb, tb = JaxBuilder(), TorchBuilder()
         chip_smoke.stand_in_mesh_scene(jb, 24, 12)
         chip_smoke.stand_in_mesh_scene(tb, 24, 12)
-        return jb.finalize(), tb.finalize()
+        return jb.finalize(), tb.finalize(device="cpu")
     if name == "final_scene_stand_in":
         jb, tb = JaxBuilder(), TorchBuilder()
         earth = chip_smoke.earth_stand_in()
         chip_smoke.final_scene_stand_in(jb, earth)
         chip_smoke.final_scene_stand_in(tb, earth)
-        return jb.finalize(), tb.finalize()
-    return jlib.SCENES[name]().scene, tlib.SCENES[name]().scene
+        return jb.finalize(), tb.finalize(device="cpu")
+    return jlib.SCENES[name]().scene, tlib.SCENES[name](device="cpu").scene
 
 
 @pytest.mark.parametrize("name", LIBRARY + ["stand_in_mesh", "final_scene_stand_in"])
@@ -104,6 +104,32 @@ def test_from_numpy_round_trip():
     assert isinstance(from_jax.stats, SceneStats)
     assert from_jax.stats == ts.stats
     assert_tree_equal(from_jax.to_numpy(), ts.to_numpy())
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Scenes, builders, cameras and from_numpy build on the card unless
+    asked for the CPU; without a card they raise instead of moving there."""
+    from raytracer2022_tpu_torch.render.camera import make_camera
+
+    def builder():
+        b = TorchBuilder()
+        b.sphere((0, 0, 0), 1, b.lambertian((0.5, 0.5, 0.5)))
+        return b
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bundle = tlib.cornell_box(device="cpu")
+    cam_kw = bundle.camera_kwargs
+    for build in (
+        lambda: tlib.cornell_box(),
+        lambda: builder().finalize(),
+        lambda: make_camera(**cam_kw),
+        lambda: SceneData.from_numpy(bundle.scene.to_numpy(), bundle.scene.stats),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert bundle.scene.device.type == "cpu"
+    assert make_camera(**cam_kw, device="cpu").origin.device.type == "cpu"
+    assert builder().finalize(device="cpu").device.type == "cpu"
 
 
 def test_port_never_imports_jax():

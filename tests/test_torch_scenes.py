@@ -43,8 +43,8 @@ def _bundles(name):
         jb, tb = JaxBuilder(), TorchBuilder()
         kw = chip_smoke.final_scene_stand_in(jb, earth)
         chip_smoke.final_scene_stand_in(tb, earth)
-        return (jb.finalize(), kw, (0.0, 0.0, 0.0)), (tb.finalize(), kw, (0.0, 0.0, 0.0))
-    jb, tb = jlib.SCENES[name](), tlib.SCENES[name]()
+        return (jb.finalize(), kw, (0.0, 0.0, 0.0)), (tb.finalize(device="cpu"), kw, (0.0, 0.0, 0.0))
+    jb, tb = jlib.SCENES[name](), tlib.SCENES[name](device="cpu")
     return (jb.scene, jb.camera_kwargs, jb.background), (tb.scene, tb.camera_kwargs, tb.background)
 
 
@@ -59,7 +59,7 @@ def test_render_matches_jax_within_noise(name):
         for s in (0, 1)
     ]
     tcfg = TraceConfig(max_depth=50, background=tbg)
-    got = R.render_batch_regen(ts, make_camera(**tkw), R.launch_generator(0, 0, "cpu"),
+    got = R.render_batch_regen(ts, make_camera(**tkw, device="cpu"), R.launch_generator(0, 0, "cpu"),
                                W, H, SPP_PAR, SPP_SEQ, tcfg).numpy() / n
     assert np.isfinite(got).all() and got.mean() > 0.05
     gap = np.abs(got - ref[0]).mean()

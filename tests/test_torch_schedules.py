@@ -37,7 +37,7 @@ def _dome(mirrors: bool, tree: bool = False):
         rng = np.random.default_rng(0)
         for c in rng.uniform((-12, -12, -45), (12, 12, -25), (600, 3)):
             b.sphere(c, 0.4, emit)
-    return b.finalize()
+    return b.finalize(device="cpu")
 
 
 CAM = dict(lookfrom=(0, 0, 0), lookat=(0, 0, -1), vup=(0, 1, 0), vfov=60, aspect_ratio=1.0)
@@ -57,7 +57,7 @@ def test_counts_exact_through_the_drains(schedule, mirrors):
     misrouted by the pool, the leftover-quota split or the drains."""
     cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0))
     img, iters = R.render_batch_regen(
-        _dome(mirrors), make_camera(**CAM), R.launch_generator(11, 0, "cpu"), 32, 32, 8, 40, cfg,
+        _dome(mirrors), make_camera(**CAM, device="cpu"), R.launch_generator(11, 0, "cpu"), 32, 32, 8, 40, cfg,
         return_iters=True, schedule=schedule,
     )
     _assert_exact_emission(img, 8 * 40)
@@ -68,7 +68,7 @@ def test_counts_exact_through_the_drains(schedule, mirrors):
 
 def test_pixel_pool_is_the_default_above_32_sequential_samples():
     cfg = TraceConfig(max_depth=4, background=(0.0, 0.0, 0.0))
-    img = R.render_batch_regen(_dome(False), make_camera(**CAM), R.launch_generator(1, 0, "cpu"),
+    img = R.render_batch_regen(_dome(False), make_camera(**CAM, device="cpu"), R.launch_generator(1, 0, "cpu"),
                                8, 8, 2, 33, cfg)
     _assert_exact_emission(img, 2 * 33)
 
@@ -81,7 +81,7 @@ def test_sorted_quota_counts_exact():
     assert scene.use_bvh
     cfg = TraceConfig(max_depth=50, background=(0.0, 0.0, 0.0), sort_rays=True)
     img, iters = R.render_batch_regen(
-        scene, make_camera(**CAM), R.launch_generator(2, 0, "cpu"), 16, 16, 8, 6, cfg,
+        scene, make_camera(**CAM, device="cpu"), R.launch_generator(2, 0, "cpu"), 16, 16, 8, 6, cfg,
         return_iters=True,
     )
     _assert_exact_emission(img, 8 * 6)
@@ -97,7 +97,7 @@ def _pixel_scene():
     rng = np.random.default_rng(1)
     for c in rng.uniform((-12, -12, -45), (12, 12, -25), (600, 3)):
         b.sphere(c, 0.4, b.diffuse_light((0.7, 0.7, 0.7)))
-    return b.finalize()
+    return b.finalize(device="cpu")
 
 
 def test_sort_regroup_returns_every_pixel_its_own_samples():
@@ -160,7 +160,7 @@ def _lit_scene():
     b.add_light(light)
     b.rect_xz(-4, 4, -4, 4, 0.0, b.lambertian((0.6, 0.4, 0.3)))
     b.rect_xy(-4, 4, 0, 4, 3.0, b.metal((0.8, 0.8, 0.8), 0.3))  # behind the light
-    return b.finalize(), make_camera((0, 2, -8), (0, 1, 0), (0, 1, 0), 40, 1.0)
+    return b.finalize(device="cpu"), make_camera((0, 2, -8), (0, 1, 0), (0, 1, 0), 40, 1.0, device="cpu")
 
 
 def test_trace_matches_trace_regen_in_distribution():

@@ -28,7 +28,7 @@ N = 50_000
 T_MIN = 1e-3
 
 
-def _lit_scene(b):
+def _lit_scene(b, **finalize_kw):
     """Two rect lights (one per axis family), a sphere light, and surfaces
     of all four surface materials."""
     for x0, x1, z0, z1, k in ((213, 343, 127, 232, 554.0), (100, 200, 127, 232, 300.0)):
@@ -41,12 +41,12 @@ def _lit_scene(b):
     b.rect_yz(0, 555, 0, 555, 555, b.lambertian((0.65, 0.05, 0.05)))
     b.sphere((190, 90, 190), 90, b.dielectric(1.5))
     b.sphere((380, 90, 190), 80, b.metal((0.8, 0.85, 0.88), 0.0))
-    return b.finalize()
+    return b.finalize(**finalize_kw)
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    return _lit_scene(JaxBuilder()), _lit_scene(TorchBuilder())
+    return _lit_scene(JaxBuilder()), _lit_scene(TorchBuilder(), device="cpu")
 
 
 def _rays(n=2048, seed=4):
@@ -148,7 +148,7 @@ def test_get_rays_match_jax_with_zero_aperture():
     rng = np.random.default_rng(2)
     s, t = rng.uniform(0, 1, (2, 500)).astype(np.float32)
     oj, dj, _ = jcam.get_rays(jcam.make_camera(**kw), jnp.asarray(s), jnp.asarray(t), jax.random.PRNGKey(0))
-    ot, dt, tmt = tcam.get_rays(tcam.make_camera(**kw), torch.as_tensor(s), torch.as_tensor(t),
+    ot, dt, tmt = tcam.get_rays(tcam.make_camera(**kw, device="cpu"), torch.as_tensor(s), torch.as_tensor(t),
                                 torch.Generator().manual_seed(0))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=1e-6, atol=1e-5)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-5, atol=1e-4)

@@ -41,7 +41,7 @@ def _dome(mirrors: bool):
         mirror = b.metal((1.0, 1.0, 1.0), 0.0)
         b.rect_yz(-10, 10, -20, 0, -1, mirror)
         b.rect_yz(-10, 10, -20, 0, 1, mirror)
-    return b.finalize()
+    return b.finalize(device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -54,7 +54,7 @@ def test_regen_pool_counts_exact(mirror, w, h, spp_par, spp_seq):
     duplicated or misrouted by the pool, the slot deposit, the narrow
     drains (8192 lanes) or the final regroup."""
     scene = _dome(mirror)
-    cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 60, 1.0)
+    cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 60, 1.0, device="cpu")
     cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0))
     gen = R.launch_generator(11, 0, "cpu")
     img, iters = R.render_batch_regen(
@@ -75,7 +75,7 @@ def test_stand_in_mesh_matches_jax_within_noise():
     jb, tb = JaxBuilder(), SceneBuilder()
     cam_kw = chip_smoke.stand_in_mesh_scene(jb, 24, 12)
     chip_smoke.stand_in_mesh_scene(tb, 24, 12)
-    js, ts = jb.finalize(), tb.finalize()
+    js, ts = jb.finalize(), tb.finalize(device="cpu")
     assert ts.bvh8[0] is not None
     jcfg = JaxTraceConfig(max_depth=50, background=(0.0, 0.0, 0.0))
     a = np.asarray(
@@ -84,7 +84,7 @@ def test_stand_in_mesh_matches_jax_within_noise():
     ) / 32
     tcfg = TraceConfig(max_depth=50, background=(0.0, 0.0, 0.0))
     r = R.render_batch_regen(
-        ts, make_camera(**cam_kw), R.launch_generator(5, 0, "cpu"), 24, 24, 4, 8, tcfg
+        ts, make_camera(**cam_kw, device="cpu"), R.launch_generator(5, 0, "cpu"), 24, 24, 4, 8, tcfg
     ).numpy() / 32
     assert np.isfinite(r).all() and r.mean() > 0.05
     np.testing.assert_allclose(r.mean(), a.mean(), rtol=0.05)
@@ -97,7 +97,7 @@ def _checkpoint_scene():
     b.flip_face(light)
     b.add_light(light)
     b.rect_xz(-4, 4, -4, 4, 0.0, b.lambertian((0.6, 0.4, 0.3)))
-    return b.finalize(), make_camera((0, 2, -8), (0, 1, 0), (0, 1, 0), 40, 1.0)
+    return b.finalize(device="cpu"), make_camera((0, 2, -8), (0, 1, 0), (0, 1, 0), 40, 1.0, device="cpu")
 
 
 def test_render_checkpoint_resume(tmp_path, monkeypatch):
@@ -141,7 +141,7 @@ def test_render_checkpoint_resume(tmp_path, monkeypatch):
     b = SceneBuilder()
     b.rect_xz(-4, 4, -4, 4, 0.0, b.lambertian((0.1, 0.1, 0.1)))
     resumed["n"] = 0
-    R.render_sum_n(b.finalize(), cam, cfg, checkpoint=ckpt)
+    R.render_sum_n(b.finalize(device="cpu"), cam, cfg, checkpoint=ckpt)
     assert resumed["n"] == 6
 
 
@@ -154,7 +154,7 @@ def test_schedule_choice_and_unported_schedules():
     assert choose_schedule(33, 4) is Schedule.PIXEL
     assert choose_schedule(8, None) is Schedule.QUOTA
     scene = _dome(True)
-    cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 60, 1.0)
+    cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 60, 1.0, device="cpu")
     gen_rays = R._regen_gen_rays(cam, 8, 8)
     pix0 = torch.arange(128) % 64
     for sched in Schedule:

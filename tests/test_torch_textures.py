@@ -25,18 +25,18 @@ RTOL_NOISE_JAX, ATOL_NOISE_JAX = 2e-3, 2e-4
 RTOL_TURB_JAX, ATOL_TURB_JAX = 5e-3, 5e-4
 
 
-def _scene(builder, make_tex, uv_tri=False):
+def _scene(builder, make_tex, uv_tri=False, **finalize_kw):
     tid = make_tex(builder)
     mat = builder.lambertian(tid)
     if uv_tri:
         builder.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), mat, uv=((0, 0), (1, 0), (0, 1)))
     else:
         builder.sphere((0, 0, 0), 1, mat)
-    return builder.finalize()
+    return builder.finalize(**finalize_kw)
 
 
 def _both(make_tex, uv_tri=False):
-    return _scene(JaxBuilder(), make_tex, uv_tri), _scene(TorchBuilder(), make_tex, uv_tri)
+    return _scene(JaxBuilder(), make_tex, uv_tri), _scene(TorchBuilder(), make_tex, uv_tri, device="cpu")
 
 
 def _eval_both(scenes, p, u=None, v=None, tex_uv=None):
@@ -93,7 +93,7 @@ def test_perlin_turb_and_marble_against_oracle_and_jax():
 def test_perlin_integer_corners():
     """Negative and lattice-aligned coordinates: floor, & 255 and the XOR on
     int32, as the reference's usize arithmetic."""
-    ts = _scene(TorchBuilder(), lambda b: b.noise(1.0))
+    ts = _scene(TorchBuilder(), lambda b: b.noise(1.0), device="cpu")
     pts = np.array([[-256.0, -1.0, 0.0, 255.0, 256.0, -0.5, 1e3 + 0.25],
                     [-3.0, 0.0, 1.0, -255.5, 7.0, -0.5, -1e3 - 0.75],
                     [0.0, -1.0, 2.0, 3.0, -4.0, -0.5, 0.5]], np.float32)

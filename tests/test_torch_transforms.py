@@ -42,7 +42,7 @@ def _assert_t_close(t_ref, t_got):
 
 @pytest.fixture(scope="module")
 def smoke():
-    return jlib.cornell_smoke().scene, tlib.cornell_smoke().scene
+    return jlib.cornell_smoke().scene, tlib.cornell_smoke(device="cpu").scene
 
 
 def _box_ids(scene):
@@ -95,7 +95,7 @@ def test_hit_details_on_rotated_boxes_matches_jax(smoke):
     assert (np.abs(n[0]) > 0.1).any() and (np.abs(n[2]) > 0.1).any() and (np.abs(n) < 0.99).any()
 
 
-def _rotated_cornell(b):
+def _rotated_cornell(b, **finalize_kw):
     """Book3's Cornell box with its two rotated solid boxes (scene.rs)."""
     red = b.lambertian((0.65, 0.05, 0.05))
     white = b.lambertian((0.73, 0.73, 0.73))
@@ -114,11 +114,11 @@ def _rotated_cornell(b):
     box2 = b.box((0, 0, 0), (165, 165, 165), b.metal((0.8, 0.85, 0.88), 0.0))
     b.rotate_y(box2, -18.0)
     b.translate(box2, (130, 0, 65))
-    return b.finalize()
+    return b.finalize(**finalize_kw)
 
 
 def test_closest_hit_with_rotated_boxes_matches_jax():
-    js, ts = _rotated_cornell(JaxBuilder()), _rotated_cornell(TorchBuilder())
+    js, ts = _rotated_cornell(JaxBuilder()), _rotated_cornell(TorchBuilder(), device="cpu")
     o, d, tm = _rays(3)
     h_ref, s_ref = jx.closest_hit(js, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm), T_MIN, jnp.inf,
                                   jax.random.PRNGKey(0))
