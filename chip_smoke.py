@@ -14,7 +14,11 @@ at S1-S3 against its bound, and renders a stand-in ``final_scene``
 ``render_sum_n``, ``cornell_box`` and every library scene that needs no
 file through ``cli.main``, the pixel-pool and quota schedules with exact
 per-pixel sample counts, the ray sort and the fixed-depth ``trace``, and
-times the cluster walk against K1 on one sphere tree.  Every phase that
+times the cluster walk against K1 on one sphere tree.  The ``diff`` phase
+drives the differentiable path: K1 against the cluster walk under
+gradients, a central difference, fwd+bwd through ``trace_regen_diff`` on
+``cornell_box`` (256x256 x 64 spp, depth 50) and on the stand-in mesh
+through K1 (128x128 x 32 spp), the fit step, and the fit demo.  Every phase that
 fails makes the script exit non-zero; nothing falls back to the CPU.  The
 last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before the card's name and power limit is the kernel table as JSON.
@@ -229,6 +233,136 @@ def random_rays(rng, n: int, lo: float, hi: float):
     d = rng.normal(size=(3, n)).astype(np.float32)
     tm = rng.uniform(0, 1, n).astype(np.float32)
     return o, d, tm
+
+
+# ---------------------------------------------------------------------------
+# the differentiable path: K1 (or its plain version) against the cluster
+# walk under gradients (shared with tests/test_torch_grad.py and
+# tests/test_torch_kernels.py).  The scenes are those of the JAX package's
+# tests/test_bvh8.py and tests/test_grad_geom.py; the walk's scene is the
+# same scene with ``dataclasses.replace(scene, bvh8=(None,))``.
+# ---------------------------------------------------------------------------
+
+# material gradients: a few samples' paths flip on winner ties and
+# rounding between the two searches (tests/test_bvh8.py:204-208)
+MAT_RTOL, MAT_ATOL = 0.1, 1e-5
+# geometry gradients: isolated tie flips (tests/test_grad_geom.py:155-162)
+GEOM_RTOL, GEOM_ATOL, GEOM_BIG_RTOL = 1e-3, 3e-4, 2e-2
+
+
+def tri64_scene(builder, seed: int = 1234, **finalize_kw):
+    """64 random triangles under a rect light, one TRIANGLE tree with a
+    packet tree -> (scene, camera kwargs)."""
+    rng = np.random.default_rng(seed)
+    b = builder
+    light = b.rect_xz(-3, 3, -3, 3, 10.0, b.diffuse_light((6.0, 6.0, 6.0)))
+    b.flip_face(light)
+    b.add_light(light)
+    mat = b.lambertian((0.6, 0.5, 0.4))
+    for _ in range(64):
+        c = rng.uniform(-6, 6, 3) * np.array([1.0, 0.2, 1.0])
+        b.triangle(c, c + rng.uniform(-2, 2, 3), c + rng.uniform(-2, 2, 3), mat)
+    cam_kw = dict(lookfrom=(0, 8, -10), lookat=(0, 0, 0), vup=(0, 1, 0), vfov=45, aspect_ratio=1.0)
+    return b.finalize(bvh_threshold=16, cluster_size=32, **finalize_kw), cam_kw
+
+
+def geom_sphere_scene(builder, **finalize_kw):
+    """A sphere filling the view under the sky gradient, 20 filler spheres
+    inside it, a SPHERE packet tree -> (scene, camera kwargs, the target's
+    column in ``params``)."""
+    b = builder
+    b.sphere((0.0, 0.0, 0.0), 3.0, b.lambertian((0.6, 0.5, 0.4)))
+    filler = b.lambertian((0.5, 0.5, 0.5))
+    for i in range(20):
+        b.sphere((0.0, 0.0, 0.0), 0.05 + 0.001 * i, filler)
+    scene = b.finalize(bvh_threshold=16, cluster_size=8, bvh8_kinds=(SPHERE,), **finalize_kw)
+    col = int(np.argmax(np.asarray(scene.params[3].cpu()) == 3.0))
+    cam_kw = dict(lookfrom=(0.0, 0.0, -4.5), lookat=(0.0, 0.0, 0.0), vup=(0, 1, 0), vfov=30, aspect_ratio=1.0)
+    return scene, cam_kw, col
+
+
+def geom_triangle_scene(builder, **finalize_kw):
+    """One tilted triangle covering the view under the sky gradient, 20
+    filler triangles behind it, a TRIANGLE packet tree -> (scene, camera
+    kwargs, the target's column)."""
+    b = builder
+    b.triangle((-6.0, -3.0, 2.8), (5.5, -2.6, 4.2), (0.3, 7.0, 2.2), b.lambertian((0.6, 0.5, 0.4)))
+    filler = b.lambertian((0.5, 0.5, 0.5))
+    rng = np.random.default_rng(5)
+    for _ in range(20):
+        c = rng.uniform(-3, 3, 3) + np.array([0.0, 0.0, 20.0])
+        b.triangle(c, c + rng.uniform(-1, 1, 3), c + rng.uniform(-1, 1, 3), filler)
+    scene = b.finalize(bvh_threshold=16, cluster_size=8, bvh8_kinds=(TRIANGLE,), **finalize_kw)
+    col = int(np.argmax(np.asarray(scene.params[0].cpu()) == -6.0))
+    cam_kw = dict(lookfrom=(0.0, 0.0, -1.0), lookat=(0.0, 0.3, 3.0), vup=(0, 1, 0), vfov=25, aspect_ratio=1.0)
+    return scene, cam_kw, col
+
+
+def _regen_grad(scene, cam, size, spp_seq, n_iters, cfg, wrt: str, seed: int) -> np.ndarray:
+    """d(mean radiance / spp_seq)/d(``wrt``: "color" or "params") of
+    trace_regen_diff on ``size`` x ``size`` pixels x 4 lanes."""
+    import dataclasses
+
+    import torch
+
+    from raytracer2022_tpu_torch.render.integrator import trace_regen_diff
+    from raytracer2022_tpu_torch.render.renderer import _regen_gen_rays
+
+    if wrt == "color":
+        x = scene.textures.color.clone().requires_grad_()
+        s = dataclasses.replace(scene, textures=dataclasses.replace(scene.textures, color=x))
+    else:
+        x = scene.params.clone().requires_grad_()
+        s = dataclasses.replace(scene, params=x)
+    n = size * size * 4
+    pix0 = torch.arange(n, device=scene.device) % (size * size)
+    rad, _ = trace_regen_diff(s, _regen_gen_rays(cam, size, size), pix0, spp_seq, n_iters, seed, cfg, spp_par=4)
+    (g,) = torch.autograd.grad(rad.mean() / spp_seq, x)
+    return g.cpu().numpy()
+
+
+def material_grad(scene, cam, seed: int = 0) -> np.ndarray:
+    """The texture-colour gradient of tests/test_bvh8.py's parity test:
+    16x16 pixels x 4 lanes x 8 samples, 33 iterations, depth 4."""
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+
+    return _regen_grad(scene, cam, 16, 8, 4 * 8 + 1, TraceConfig(max_depth=4, background=(0.0, 0.0, 0.0)),
+                       "color", seed)
+
+
+def geometry_grad(scene, cam, seed: int = 11) -> np.ndarray:
+    """The params gradient of tests/test_grad_geom.py's parity test: 12x12
+    pixels x 4 lanes x 8 samples, 13 iterations, depth 3, sky background."""
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+
+    return _regen_grad(scene, cam, 12, 8, 4 * 3 + 1, TraceConfig(max_depth=3, background=None), "params", seed)
+
+
+def geometry_loss(scene, cam, seed: int = 11):
+    """tests/test_grad_geom.py's FD loss: the mean pixel of a 12x12 x 4 x 8
+    render_batch_regen_diff, 13 iterations, depth 3, sky background, and a
+    spawn offset of 5e-3 (the search sees the baked tree, the recompute the
+    perturbed params, so a hit point can sit up to the step inside the
+    baked surface)."""
+    import torch
+
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import render_batch_regen_diff
+
+    cfg = TraceConfig(max_depth=3, background=None, spawn_eps=5e-3)
+    img, cnt = render_batch_regen_diff(scene, cam, seed, 12, 12, 4, 8, 4 * 3 + 1, cfg)
+    return torch.mean(img / torch.clamp(cnt, min=1)[None])
+
+
+def check_geometry_parity(g_k1: np.ndarray, g_walk: np.ndarray) -> float:
+    """K1's geometry gradient against the cluster walk's: all entries at
+    rtol 1e-3, atol 3e-4, the dominant ones (above a tenth of the largest)
+    at rtol 2e-2.  -> the max |difference|."""
+    assert np.isfinite(g_k1).all() and np.abs(g_walk).max() > 1e-5
+    np.testing.assert_allclose(g_k1, g_walk, rtol=GEOM_RTOL, atol=GEOM_ATOL)
+    big = np.abs(g_walk) > np.abs(g_walk).max() / 10
+    np.testing.assert_allclose(g_k1[big], g_walk[big], rtol=GEOM_BIG_RTOL)
+    return float(np.abs(g_k1 - g_walk).max())
 
 
 # ---------------------------------------------------------------------------
@@ -517,8 +651,8 @@ def print_ptxas(log: str) -> None:
 
 FILE_FREE = ["random_scene", "two_spheres", "two_perlin_spheres", "simple_light", "cornell_smoke",
              "cornell_box_book"]
-SMALL = 96  # library renders through the CLI: 96x96 x 16 spp
-SMALL_SPP = 16
+SMALL = 96  # library renders through the CLI: 96x96 x 8 spp
+SMALL_SPP = 8
 MAX_REL = 0.08  # card-vs-CPU and render-vs-render channel means (Monte-Carlo noise)
 CPU_SEEDS = 8  # card-vs-CPU checks: CPU renders, one per seed, give the seed-to-seed spread
 CARD_FACTOR = 16  # ... and the card renders once at this many times the samples
@@ -675,7 +809,7 @@ def phase_schedules(dev, smi) -> dict:
 
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import Schedule, TraceConfig
-    from raytracer2022_tpu_torch.render.renderer import launch_generator, render_batch_regen
+    from raytracer2022_tpu_torch.render.renderer import render_batch_regen, step_generator
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
     from raytracer2022_tpu_torch.scene.library import SCENES
 
@@ -688,7 +822,7 @@ def phase_schedules(dev, smi) -> dict:
         dome_cam = make_camera(**_dome(b), device=dev)
         cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0))
         cnt_seq = min(spp_seq, 64)
-        img, iters = render_batch_regen(b.finalize(device=dev), dome_cam, launch_generator(0, 0, dev), size, size,
+        img, iters = render_batch_regen(b.finalize(device=dev), dome_cam, step_generator(0, 0, dev), size, size,
                                         spp_par, cnt_seq, cfg, return_iters=True, schedule=sched)
         img = (img / (spp_par * cnt_seq)).cpu().numpy()
         err = max(float(np.abs(img[c] - e).max()) for c, e in enumerate(EMIT))
@@ -702,7 +836,7 @@ def phase_schedules(dev, smi) -> dict:
         cfg = TraceConfig(max_depth=DEPTH, background=bundle.background)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img, iters = render_batch_regen(bundle.scene, cam, launch_generator(0, 0, dev), size, size, spp_par,
+        img, iters = render_batch_regen(bundle.scene, cam, step_generator(0, 0, dev), size, size, spp_par,
                                         spp_seq, cfg, return_iters=True, schedule=sched)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -725,7 +859,7 @@ def phase_sort_and_trace(dev, smi) -> None:
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
     from raytracer2022_tpu_torch.render.renderer import (
-        RenderConfig, launch_generator, render_batch_regen, render_sum_n,
+        RenderConfig, render_batch_regen, render_sum_n, step_generator,
     )
     from raytracer2022_tpu_torch.scene.library import SCENES, random_scene
 
@@ -735,7 +869,7 @@ def phase_sort_and_trace(dev, smi) -> None:
     m = {}
     for sort in (False, True):
         cfg = TraceConfig(max_depth=DEPTH, background=bundle.background, sort_rays=sort)
-        img = render_batch_regen(bundle.scene, cam, launch_generator(0, 0, dev), 64, 64, 2, 16, cfg)
+        img = render_batch_regen(bundle.scene, cam, step_generator(0, 0, dev), 64, 64, 2, 16, cfg)
         m[sort] = (img / 32).mean(dim=(1, 2)).cpu().numpy()
     rel = _rel(m[True], m[False])
     print(f"ray sort: random_scene (trees {bundle.scene.stats.trees}) 64x64 x 2 lanes x 16, sorted vs unsorted "
@@ -785,6 +919,225 @@ def phase_packet_policy(dev, smi, s3) -> dict:
           f"K1 {s3['ms']:.4f} ms (S3); hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal "
           f"{rep['id_match']:.4f} ({smi})", flush=True)
     return {"walk_ms": walk_ms, "k1_ms": s3["ms"]}
+
+
+DIFF_SIZE, DIFF_SPP_PAR, DIFF_SPP_SEQ = 256, 2, 32  # bench.py's fwd+bwd cell: 256x256 x 64 spp
+MESH_DIFF_SIZE, MESH_DIFF_SPP_PAR, MESH_DIFF_SPP_SEQ = 128, 4, 8  # bench.py's OBJ fwd+bwd cell
+FIT_SIZE, FIT_SPP, FIT_DEPTH = 64, 32, 8  # bench.py's fit step
+DIFF_REPS = 3
+
+
+def _median_s(fn, reps: int = DIFF_REPS) -> float:
+    """Median wall seconds of ``fn()`` after one warm-up, each run ended by
+    ``torch.cuda.synchronize()``."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
+
+
+def _fwd_bwd_cell(label: str, scene, cam, size: int, spp_par: int, spp_seq: int, wrt, smi: str) -> dict:
+    """One fwd+bwd cell: the trip counts from ``regen_iters_estimate``
+    (split drain), the median fwd+bwd step (render, mean(img / cnt),
+    ``torch.autograd.grad`` with respect to ``wrt``: "materials.param" and
+    "textures.color"), the forward alone under ``torch.no_grad()``, peak
+    memory, and K1 launches per step (forward plus recompute) against a
+    forward alone."""
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.parallel.mesh import with_params
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import regen_iters_estimate, render_batch_regen_diff
+
+    cfg = TraceConfig(max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+    t0 = time.perf_counter()
+    n_iters, n_drain = regen_iters_estimate(scene, cam, size, size, spp_par, spp_seq, cfg, split_drain=True)
+    torch.cuda.synchronize()
+    est_s = time.perf_counter() - t0
+
+    def render(s, seed):
+        img, cnt = render_batch_regen_diff(s, cam, seed, size, size, spp_par, spp_seq, n_iters, cfg, n_drain=n_drain)
+        return torch.mean(img / torch.clamp(cnt, min=1)[None]), cnt
+
+    out = {}
+
+    def step(seed=0):
+        leaves = {"materials.param": scene.materials.param.clone(), "textures.color": scene.textures.color.clone()}
+        for w in wrt:
+            leaves[w].requires_grad_()
+        loss, cnt = render(with_params(scene, leaves["materials.param"], leaves["textures.color"]), seed)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        grads = torch.autograd.grad(loss, [leaves[w] for w in wrt])
+        torch.cuda.synchronize()
+        out.update(bwd_s=time.perf_counter() - t_b, grads=grads, cnt=cnt)
+
+    def forward():
+        with torch.no_grad():
+            render(scene, 0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t_fb = _median_s(step)
+    peak = torch.cuda.max_memory_allocated() - base
+    t_fwd = _median_s(forward)
+    # K1 launches of one step and of one forward, counted from 0 around each
+    bvh8.LAUNCHES = 0
+    step(DIFF_REPS + 1)
+    k1_step = bvh8.LAUNCHES
+    bvh8.LAUNCHES = 0
+    forward()
+    k1_fwd = bvh8.LAUNCHES
+    grads = [g.cpu().numpy() for g in out["grads"]]
+    cnt = out["cnt"].cpu().numpy()
+    paths = size * size * spp_par * spp_seq
+    rec = {"n_iters": n_iters, "n_drain": n_drain, "estimate_s": est_s, "fwd_bwd_s": t_fb, "fwd_s": t_fwd,
+           "bwd_s": out["bwd_s"], "fwd_bwd_mpaths": paths / t_fb / 1e6, "fwd_mpaths": paths / t_fwd / 1e6,
+           "fwd_bwd_over_fwd": t_fb / t_fwd, "peak_gib": peak / 2**30, "k1_per_step": k1_step,
+           "k1_per_forward": k1_fwd, "completed": float(cnt.sum()) / paths, "grads": grads}
+    assert all(np.isfinite(g).all() for g in grads), f"{label}: non-finite gradients"
+    print(f"fwd+bwd {label} {size}x{size} x {spp_par} lanes x {spp_seq} seq, depth {DEPTH}: n_iters {n_iters} + "
+          f"drain {n_drain} (estimate {est_s:.2f} s); step {t_fb:.3f} s ({rec['fwd_bwd_mpaths']:.3f} Mpaths/s, "
+          f"backward {out['bwd_s']:.3f} s), forward alone {t_fwd:.3f} s ({rec['fwd_mpaths']:.3f} Mpaths/s), "
+          f"fwd+bwd / fwd {rec['fwd_bwd_over_fwd']:.2f}; peak memory {rec['peak_gib']:.3f} GiB above "
+          f"{base / 2**30:.3f}; K1 launches per step {k1_step} (forward alone {k1_fwd}); "
+          f"samples completed {100 * rec['completed']:.2f}% ({smi})", flush=True)
+    return rec
+
+
+def phase_diff(dev, smi) -> dict:
+    """The differentiable path: K1 against the cluster walk under
+    gradients, a central difference on the card, fwd+bwd at full width on
+    cornell_box and on the stand-in mesh through K1, the fit step, and the
+    fit demo."""
+    import dataclasses
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch import fit
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.parallel.mesh import fit_step_fn
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen_diff
+    from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+    from raytracer2022_tpu_torch.scene.library import cornell_box
+    from raytracer2022_tpu_torch.scene.types import RECT
+
+    out = {}
+    # 1. K1 against the cluster walk: one gradient convention on the card
+    scene, cam_kw = tri64_scene(SceneBuilder(), device=dev)
+    cam = make_camera(**cam_kw, device=dev)
+    bvh8.LAUNCHES = 0
+    g_k1 = material_grad(scene, cam)
+    k1_runs = bvh8.LAUNCHES
+    g_walk = material_grad(dataclasses.replace(scene, bvh8=(None,)), cam)
+    assert k1_runs > 0, "the material gradient never launched K1"
+    assert np.isfinite(g_k1).all() and np.abs(g_k1).max() > 0
+    np.testing.assert_allclose(g_k1, g_walk, rtol=MAT_RTOL, atol=MAT_ATOL)
+    print(f"diff K1 vs cluster walk, 64-triangle scene material gradient: max |diff| "
+          f"{np.abs(g_k1 - g_walk).max():.3g} (max |g| {np.abs(g_walk).max():.3g}; rtol {MAT_RTOL}, atol "
+          f"{MAT_ATOL}), K1 launches {k1_runs}", flush=True)
+    for label, build in (("sphere", geom_sphere_scene), ("triangle", geom_triangle_scene)):
+        scene, cam_kw, col = build(SceneBuilder(), device=dev)
+        cam = make_camera(**cam_kw, device=dev)
+        bvh8.LAUNCHES = 0
+        g_k1 = geometry_grad(scene, cam)
+        k1_runs = bvh8.LAUNCHES
+        assert k1_runs > 0, f"the {label} geometry gradient never launched K1"
+        err = check_geometry_parity(g_k1, geometry_grad(dataclasses.replace(scene, bvh8=(None,)), cam))
+        rows = (1, 3) if label == "sphere" else (1,)
+        print(f"diff K1 vs cluster walk, {label} geometry gradient: max |diff| {err:.3g}, target rows "
+              f"{[float(g_k1[r, col]) for r in rows]}, K1 launches {k1_runs}", flush=True)
+
+    # 2. a central difference on the card: tests/test_grad.py:75-98
+    b = SceneBuilder()
+    light = b.rect_xz(-1, 1, -1, 1, 3.9, b.diffuse_light((8.0, 8.0, 8.0)))
+    b.flip_face(light)
+    b.add_light(light)
+    b.rect_xz(-4, 4, -4, 4, 0.0, b.lambertian((0.6, 0.4, 0.3)))
+    b.sphere((0, 1, 0), 1, b.lambertian((0.3, 0.5, 0.7)))
+    mini = b.finalize(device=dev)
+    mini_cam = make_camera((0, 2, -8), (0, 1, 0), (0, 1, 0), 40, 1.0, device=dev)
+    mini_cfg = TraceConfig(max_depth=6, background=(0.0, 0.0, 0.0))
+
+    def f(color):
+        s = dataclasses.replace(mini, textures=dataclasses.replace(mini.textures, color=color))
+        img, cnt = render_batch_regen_diff(s, mini_cam, 3, 12, 12, 4, 8, 4 * 6 + 1, mini_cfg)
+        return torch.mean(img / cnt[None])
+
+    floor_tex = int(mini.materials.tex[1])
+    x = mini.textures.color.clone().requires_grad_()
+    (g,) = torch.autograd.grad(f(x), x)
+    e = torch.zeros_like(x)
+    e[0, floor_tex] = 1e-2
+    with torch.no_grad():
+        fd = float((f(mini.textures.color + e) - f(mini.textures.color - e)) / 2e-2)
+    g = float(g[0, floor_tex])
+    print(f"diff central difference, mini-cornell floor albedo: gradient {g:.6g}, difference {fd:.6g} "
+          f"(rtol 2e-2, atol 1e-5)", flush=True)
+    np.testing.assert_allclose(g, fd, rtol=2e-2, atol=1e-5)
+    assert g > 0
+
+    # 3. fwd+bwd at full width on cornell_box
+    bundle = cornell_box(device=dev)
+    corn_cam = make_camera(**bundle.camera_kwargs, device=dev)
+    corn = _fwd_bwd_cell("cornell_box", bundle.scene, corn_cam, DIFF_SIZE, DIFF_SPP_PAR, DIFF_SPP_SEQ,
+                         ("materials.param", "textures.color"), smi)
+    sc = bundle.scene
+    tex = sc.materials.tex.cpu().numpy()
+    light_tex = int(tex[int(np.argmax(sc.materials.kind.cpu().numpy() == 3))])
+    # the floor: the RECT at y = 0 with constant axis y
+    p = sc.params.cpu().numpy()
+    floor = [i for i in range(sc.n_prims) if int(sc.kind[i]) == RECT and p[5, i] == 1 and p[4, i] == 0.0]
+    floor_tex = int(tex[int(sc.mat_id[floor[0]])])
+    g_color = corn["grads"][1]
+    print(f"fwd+bwd cornell_box gradients: light emission {g_color[:, light_tex].tolist()}, floor albedo "
+          f"{g_color[:, floor_tex].tolist()}", flush=True)
+    assert (g_color[:, light_tex] > 0).all() and (g_color[:, floor_tex] > 0).all(), "cornell gradients not > 0"
+    out["cornell"] = corn
+
+    # 4. fwd+bwd on the stand-in mesh through K1, its counts read around it
+    b = SceneBuilder()
+    cam_kw = stand_in_mesh_scene(b)
+    mesh = b.finalize(device=dev)
+    cam = make_camera(**cam_kw, device=dev)
+    out["mesh"] = rec = _fwd_bwd_cell("stand-in mesh", mesh, cam, MESH_DIFF_SIZE, MESH_DIFF_SPP_PAR,
+                                      MESH_DIFF_SPP_SEQ, ("textures.color",), smi)
+    assert rec["k1_per_step"] > rec["k1_per_forward"] > 0, "the mesh fwd+bwd did not launch K1 in its recompute"
+
+    # 5. the fit step at bench.py's size (fixed-depth trace)
+    fit_cfg = RenderConfig(width=FIT_SIZE, height=FIT_SIZE, spp=FIT_SPP, max_depth=FIT_DEPTH,
+                           background=bundle.background)
+    step = fit_step_fn(fit_cfg)
+    target = torch.zeros((3, FIT_SIZE, FIT_SIZE), device=dev)
+    losses = []
+    out["fit_step_s"] = _median_s(lambda: losses.append(float(step(bundle.scene, corn_cam, target, len(losses))[2])))
+    assert np.isfinite(losses).all()
+    print(f"fit step {FIT_SIZE}x{FIT_SIZE} x {FIT_SPP} spp, depth {FIT_DEPTH}: median {out['fit_step_s']:.3f} s "
+          f"of {DIFF_REPS} after a warm-up ({smi})", flush=True)
+
+    # 6. the fit demo through the regeneration integrator
+    t0 = time.perf_counter()
+    rc = fit.main(["--regen"])
+    out["fit_demo_s"] = time.perf_counter() - t0
+    print(f"fit demo --regen: exit {rc}, {out['fit_demo_s']:.1f} s ({smi})", flush=True)
+    assert rc == 0, "the fit demo did not recover the parameters"
+    return out
 
 
 SPANS = ("vertex.closest_hit", "closest_hit.dense", "closest_hit.packet_tree", "closest_hit.cluster_walk",
@@ -855,7 +1208,7 @@ def main(argv=None) -> int:
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
     from raytracer2022_tpu_torch.render.renderer import (
-        MAX_SPP_SEQ, RenderConfig, launch_generator, render_batch_regen, render_sum_n,
+        MAX_SPP_SEQ, RenderConfig, render_batch_regen, render_sum_n, step_generator,
     )
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
 
@@ -1029,11 +1382,19 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     policy = phase_packet_policy(dev, smi, k1["S3"])
     print(f"[phase packet-tree policy: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    diff = phase_diff(dev, smi)
+    print(f"[phase diff: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    diff_keys = ("n_iters", "n_drain", "estimate_s", "fwd_bwd_s", "bwd_s", "fwd_s", "fwd_bwd_mpaths", "fwd_mpaths",
+                 "fwd_bwd_over_fwd", "peak_gib", "k1_per_step", "k1_per_forward", "completed")
     print(json.dumps({"summary": {
         "mesh_mpaths": mpaths_mesh, "cli_cornell_mpaths": mpaths_cli,
         "final_scene_mpaths": final["mpaths"], "final_scene_spp": final["spp"],
         "pixel_pool_mpaths": sched["pixel"], "quota_mpaths": sched["quota"],
-        "cluster_walk_ms": policy["walk_ms"], "k1_sphere_ms": policy["k1_ms"], "card": smi,
+        "cluster_walk_ms": policy["walk_ms"], "k1_sphere_ms": policy["k1_ms"],
+        "fwd_bwd_cornell": {k: diff["cornell"][k] for k in diff_keys},
+        "fwd_bwd_mesh": {k: diff["mesh"][k] for k in diff_keys},
+        "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "card": smi,
     }}), flush=True)
 
     if args.profile:
@@ -1044,7 +1405,7 @@ def main(argv=None) -> int:
         rows = LANES // WIDTH
 
         def launch0(scene, camera, spp):
-            return render_batch_regen(scene, camera, launch_generator(0, 0, dev), WIDTH, HEIGHT, 1,
+            return render_batch_regen(scene, camera, step_generator(0, 0, dev), WIDTH, HEIGHT, 1,
                                       min(spp, MAX_SPP_SEQ), tcfg, rows=rows, return_iters=True)
 
         profile_launch("mesh", lambda: launch0(mesh, cam, args.spp), launch_log[0], args.profile)
@@ -1058,8 +1419,11 @@ def main(argv=None) -> int:
         "source": "raytracer2022_tpu_torch/csrc/bvh8.cu",
         "replaces": "raytracer2022_tpu/ops/bvh8.py:540",
         "launches": mesh_launches,
-        "launches_by_path": {"mesh": mesh_launches, "final_scene": final["k1"]},
+        "launches_by_path": {"mesh": mesh_launches, "final_scene": final["k1"],
+                             "mesh_fwd_bwd_step": diff["mesh"]["k1_per_step"],
+                             "mesh_diff_forward": diff["mesh"]["k1_per_forward"]},
         "launches_per_mesh_render": mesh_launches,
+        "launches_per_fwd_bwd_step": diff["mesh"]["k1_per_step"],
         "max_abs_err": max(r["max_abs_err"] for r in reports.values()),
         "ms": s1["ms"],
         "plain_ms": p_ms,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..scene.types import MSPHERE, RECT, RING, SPHERE, TRIANGLE, Bvh8Tree
+from .vecmath import masked_sqrt
 
 LEAF = 16  # prims per leaf
 FANOUT = 8
@@ -212,7 +213,9 @@ def sphere_roots(ocx, ocy, ocz, dx, dy, dz, r):
     differently (the JAX package's XLA fuses multiply-adds) then moves the
     near root by ~1e-4 relative.  In f64 the roots are within f32 rounding
     of exact.  A zero-length direction divides by 1, like ``safe_div``.
-    ``csrc/bvh8.cu`` does the same operations in the same order.
+    ``csrc/bvh8.cu`` does the same operations in the same order on the
+    lanes it keeps; a missed lane's roots are never read.  Differentiable
+    through the f64 casts, grad-safe on missed lanes (``masked_sqrt``).
     """
     ocx, ocy, ocz = ocx.double(), ocy.double(), ocz.double()
     dx, dy, dz, r = dx.double(), dy.double(), dz.double(), r.double()
@@ -221,7 +224,7 @@ def sphere_roots(ocx, ocy, ocz, dx, dy, dz, r):
     cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
     disc = hb * hb - a * cc
     ok = disc >= 0.0
-    sq = torch.sqrt(torch.where(ok, disc, 0.0))
+    sq = masked_sqrt(disc, ok)
     a = torch.where(a == 0.0, 1.0, a)
     return ((-hb - sq) / a).float(), ((-hb + sq) / a).float(), ok
 
@@ -543,7 +546,9 @@ def traverse_bvh8(
     ``best`` < 0); ``visits`` (CUDA tensors only) holds the groups and the
     leaves each ray visited.  CUDA tensors launch kernel K1 and record in
     ``TREE_MEMORY`` whether its group arrays were read from shared or
-    global memory; CPU tensors run :func:`traverse_bvh8_plain`.
+    global memory; CPU tensors run :func:`traverse_bvh8_plain`.  Forward
+    only, as in the JAX package: K1 has no backward, so ``closest_hit``
+    passes detached rays on both devices and recomputes the winner's t.
     """
     if kind not in _KINDS:
         raise ValueError(f"bvh8: unsupported kind {kind}")

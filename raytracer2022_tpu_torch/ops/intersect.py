@@ -713,6 +713,40 @@ def _dense_window_scan(scene, k, s, e, chunk, o, d, tm, t_min, t_max, t_best, be
     return t_best, best
 
 
+def _recompute_tree_t(scene: SceneData, o, d, tm, t_min, t_best, best, win_rows):
+    """The tree winners' hit distance, recomputed differentiably ->
+    ``(t_best, win_rows)`` (the JAX package's closest_hit l. 1028-1080).
+
+    The tree walks search under stop-gradient; this reconnects ``t`` to
+    the rays and to ``scene.params`` with one evaluation of each winner's
+    own formula (``_t_switch``, on object-space rays for transformed
+    prims).  The kernel's winner rows are baked copies of the params, so
+    the winners' rows are re-fetched from ``scene.params`` (numerically
+    identical) and grafted into ``win_rows``: the normals and uvs of
+    :func:`hit_details` then carry geometry gradients too.  Packet trees
+    hold untransformed prims only."""
+    from .bvh8 import COL_KIND
+
+    tree_lo = scene.stats.n_in_bvh
+    oo, od = o, d
+    if win_rows is not None:
+        npar = scene.params.shape[0]
+        is_tree = best < tree_lo
+        p_w = scene.params[:, torch.clamp(best, max=tree_lo - 1)]
+        kind_w = torch.round(win_rows[COL_KIND]).to(torch.int32)
+        win_rows = torch.cat([torch.where(is_tree[None], p_w, win_rows[:npar]), win_rows[npar:]])
+    else:
+        p_w = scene.params[:, best]
+        kind_w = scene.kind[best]
+        if scene.any_xform:
+            oo, od = _xform_rays(
+                scene.xf_rot[:, :, best], scene.xf_trans[:, best], scene.xf_inv_scale[best], o, d
+            )
+    t_rec = _t_switch(kind_w, p_w, oo, od, tm, t_min, INF, scene.stats.kinds_present)
+    sel = (best < tree_lo) & torch.isfinite(t_best) & torch.isfinite(t_rec)
+    return torch.where(sel, t_rec, t_best), win_rows
+
+
 def closest_hit(
     scene: SceneData,
     o,
@@ -721,6 +755,7 @@ def closest_hit(
     t_min: float,
     t_max: float,
     gen: Optional[torch.Generator] = None,
+    recompute_t: bool = True,
 ):
     """Closest hit over the whole scene -> ``(Hit, Shade)``.
 
@@ -732,6 +767,13 @@ def closest_hit(
     feed :func:`hit_details` only when every tree ran the kernel; otherwise
     the winners are fetched from the tables.  Constant media come last;
     their free flights draw from ``gen`` (the default generator if None).
+
+    Gradients: both tree walks search on detached rays (K1 has no
+    backward), so the card and the CPU's plain walk give one convention;
+    with ``recompute_t`` (the default, as in the JAX package) the tree
+    winners' ``t`` is recomputed differentiably from ``scene.params``
+    (:func:`_recompute_tree_t`).  Forward renders pass False and skip it.
+    The dense windows and the media are differentiable as they stand.
     """
     from .bvh8 import traverse_bvh8
 
@@ -768,13 +810,16 @@ def closest_hit(
         and all(t8 is not None for t8 in scene.bvh8)
     )
     win_rows = None
+    # the walks search on detached rays; their t re-enters below (recompute)
+    o_s, d_s, tm_s = o.detach(), d.detach(), tm.detach()
     for i in range(len(scene.clusters)):
         tree8 = scene.bvh8[i] if i < len(scene.bvh8) else None
+        t_init = t_best.detach()
         if tree8 is not None:
             with span("closest_hit.packet_tree"):
                 out = traverse_bvh8(
-                    tree8, scene.stats.trees[i][0], o, d, tm, float(t_min),
-                    t_init=t_best, return_rows=want_rows,
+                    tree8, scene.stats.trees[i][0], o_s, d_s, tm_s, float(t_min),
+                    t_init=t_init, return_rows=want_rows,
                 )
             t_i, b_i = out[0], out[1]
             take = (b_i >= 0) & (t_i < t_best) & (t_i <= t_max)
@@ -782,7 +827,7 @@ def closest_hit(
                 win_rows = out[2] if win_rows is None else torch.where(take[None], out[2], win_rows)
         else:
             with span("closest_hit.cluster_walk"):
-                t_i, b_i = traverse_clusters(scene, i, o, d, tm, t_min, t_max, t_init=t_best)
+                t_i, b_i = traverse_clusters(scene, i, o_s, d_s, tm_s, t_min, t_max, t_init=t_init)
             take = t_i < t_best
         t_best = torch.where(take, t_i, t_best)
         best = torch.where(take, b_i.long(), best)
@@ -793,6 +838,9 @@ def closest_hit(
             take = (tmed <= t_max) & (tmed < t_best)
             t_best = torch.where(take, tmed, t_best)
             best = torch.where(take, med_prim, best)
+
+    if scene.clusters and recompute_t:
+        t_best, win_rows = _recompute_tree_t(scene, o, d, tm, t_min, t_best, best, win_rows)
 
     hit_mask = torch.isfinite(t_best)
     safe_t = torch.where(hit_mask, t_best, 1.0)

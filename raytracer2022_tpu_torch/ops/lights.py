@@ -23,7 +23,7 @@ import torch
 from ..scene.types import RECT, SPHERE
 from .intersect import _rect_t, _sphere_t
 from .sampling import to_sphere, uniform
-from .vecmath import length_sqr, onb_from_w, onb_local, vec3
+from .vecmath import length_sqr, masked_sqrt, onb_from_w, onb_local, vec3
 
 PI = math.pi
 
@@ -53,8 +53,8 @@ def lights_pdf(scene, p, v, tm):
         dist_sqr = dx * dx + dy * dy + dz * dz
         rel = 1.0 - prm[3] * prm[3] / dist_sqr
         # origin inside the sphere: NaN pdf, as in the reference (the
-        # integrator kills such samples)
-        cos_max = torch.where(rel > 0.0, torch.sqrt(torch.where(rel > 0.0, rel, 1.0)), math.nan)
+        # integrator kills such samples), with a NaN-free backward
+        cos_max = torch.where(rel > 0.0, masked_sqrt(rel, rel > 0.0), math.nan)
         solid_angle = 2.0 * PI * (1.0 - cos_max)
         total = total + torch.where(torch.isfinite(t), 1.0 / solid_angle, 0.0).sum(dim=0)
 

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .vecmath import dot, onb_from_w, onb_local, scale, to_unit, vec3
+from .vecmath import dot, masked_sqrt, onb_from_w, onb_local, scale, to_unit, vec3
 
 PI = math.pi
 
@@ -72,11 +72,11 @@ def to_sphere(gen, radius: torch.Tensor, dist_sqr: torch.Tensor) -> torch.Tensor
     r1 = uniform(gen, tuple(radius.shape))
     r2 = uniform(gen, tuple(radius.shape))
     rel = 1.0 - radius * radius / dist_sqr
-    cos_max = torch.where(rel > 0.0, torch.sqrt(torch.where(rel > 0.0, rel, 1.0)), 0.0)
+    cos_max = torch.where(rel > 0.0, masked_sqrt(rel, rel > 0.0), 0.0)
     z = 1.0 + r2 * (cos_max - 1.0)
     phi = 2.0 * PI * r1
     zz = 1.0 - z * z
-    s = torch.where(zz > 0.0, torch.sqrt(torch.where(zz > 0.0, zz, 1.0)), 0.0)
+    s = torch.where(zz > 0.0, masked_sqrt(zz, zz > 0.0), 0.0)
     return vec3(torch.cos(phi) * s, torch.sin(phi) * s, z)
 
 

@@ -18,8 +18,16 @@ def vec3(x, y, z) -> torch.Tensor:
 
 def safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a / b`` with a 1-denominator on b==0 lanes (callers mask those
-    lanes out themselves)."""
+    lanes out themselves).  Gradient safety: a masked lane must not compute
+    an inf or NaN primal, or the backward of the ``torch.where`` that drops
+    it multiplies its zero cotangent by inf (0 * inf = NaN) upstream."""
     return a / torch.where(b == 0.0, 1.0, b)
+
+
+def masked_sqrt(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` on valid lanes, 1 elsewhere: no sqrt'(0) = inf on lanes a
+    caller clamps or drops (the same gradient safety as :func:`safe_div`)."""
+    return torch.sqrt(torch.where(valid, x, 1.0))
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Counterpart of ``raytracer2022_tpu/render/camera.py`` (reference
 raytracer/src/basic/camera.rs): ``make_camera`` mirrors ``Camera::new``
 (camera.rs:24-62), ``get_rays`` mirrors ``Camera::get_ray``
-(camera.rs:64-73) over a whole wavefront.
+(camera.rs:64-73) over a whole wavefront.  Every field is a tensor, the
+JAX package's ten leaves, so a fit can step them all, and ``make_camera``
+is differentiable in its look-at inputs.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ class Camera:
     u: torch.Tensor  # f32[3]
     v: torch.Tensor  # f32[3]
     w: torch.Tensor  # f32[3]
-    lens_radius: float
-    time0: float
-    time1: float
+    lens_radius: torch.Tensor  # f32[]
+    time0: torch.Tensor  # f32[]
+    time1: torch.Tensor  # f32[]
 
 
 def make_camera(
@@ -46,11 +48,12 @@ def make_camera(
 ) -> Camera:
     """Camera::new (camera.rs:24-62), in float32 like the JAX package.
     ``vup`` may be non-unit.  On the card unless ``device`` says otherwise
-    (without a card it raises)."""
+    (without a card it raises).  Tensor inputs that require grad (say
+    ``lookfrom``) keep their graph: the leaves are differentiable in them."""
     device = resolve_device(device)
 
     def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32)
+        return x.float() if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.float32)
 
     lookfrom = f32(lookfrom)
     lookat = f32(lookat)
@@ -80,9 +83,9 @@ def make_camera(
         u=on(u),
         v=on(v),
         w=on(w),
-        lens_radius=float(aperture) / 2.0,
-        time0=float(time0),
-        time1=float(time1),
+        lens_radius=on(f32(aperture) / 2.0),
+        time0=on(f32(time0)),
+        time1=on(f32(time1)),
     )
 
 
@@ -101,5 +104,5 @@ def get_rays(cam: Camera, s: torch.Tensor, t: torch.Tensor, gen: torch.Generator
         - cam.origin[:, None]
         - offset
     )
-    tm = uniform(gen, (n,), cam.time0, cam.time1)
+    tm = cam.time0 + (cam.time1 - cam.time0) * uniform(gen, (n,))
     return o, d, tm

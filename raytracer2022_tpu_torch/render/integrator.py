@@ -1,17 +1,29 @@
-"""Wavefront path-regeneration integrator (PyTorch, forward only).
+"""Wavefront path-tracing integrators, forward and differentiable (PyTorch).
 
 Counterpart of ``raytracer2022_tpu/render/integrator.py`` (reference
 ``ray_color``, raytracer/src/main.rs:233-278).  Per path vertex: closest
 hit -> emitted -> scatter -> mixture-PDF sample -> throughput/radiance
 update; the vertex math (:func:`_eval_vertex`) is the JAX package's.
 
-:func:`trace` is the fixed-depth bounce loop (``max_depth`` full-width
-vertices, no host synchronisation).  :func:`trace_regen` is the path
-regeneration wavefront with three schedules (:class:`Schedule`): the
-global sample pool, the pixel pool and per-lane quotas, each finished by
-N/4 -> N/16 narrow drains, and an optional per-bounce ray sort.  Each of
-its ``while`` conditions reads one or two counts on the host, so every
-iteration costs one device synchronisation.
+Forward: :func:`trace_regen` is the path regeneration wavefront with three
+schedules (:class:`Schedule`): the global sample pool, the pixel pool and
+per-lane quotas, each finished by N/4 -> N/16 narrow drains, and an
+optional per-bounce ray sort.  Each of its ``while`` conditions reads one
+or two counts on the host, so every iteration costs one device
+synchronisation.  :func:`measure_regen_handoff` runs the pixel-pool
+schedule forward to find its drain handoff.
+
+Differentiable (``torch.autograd``): :func:`trace`, the fixed-depth bounce
+loop, and :func:`trace_regen_diff`, the regeneration schedule over a fixed
+trip count with its narrow-drain cascade.  Neither reads a count on the
+host.  Every bounce or iteration runs under
+``torch.utils.checkpoint.checkpoint``, so the backward keeps one
+iteration's carry and recomputes its inside.  The generator rule: a
+checkpointed segment draws only from a generator it builds itself from
+the integer seed and its step (:func:`step_generator`), the counterpart of
+JAX's ``fold_in(key, step)``.  The checkpoint restores the default
+generators only, so a segment that drew from a generator passed in would
+replay other numbers when recomputed and give a wrong gradient silently.
 """
 
 from __future__ import annotations
@@ -20,7 +32,9 @@ import dataclasses
 import enum
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.intersect import closest_hit
 from ..ops.lights import lights_pdf, sample_lights
@@ -58,6 +72,25 @@ def choose_schedule(spp_seq: int, spp_par: Optional[int]) -> Schedule:
     return Schedule.GLOBAL if spp_seq <= 32 else Schedule.PIXEL
 
 
+def derive_seed(seed: int, step: int) -> int:
+    """The integer seed of step ``step`` of a stream seeded ``seed``."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` for step ``step`` of a stream seeded
+    ``seed``: the same numbers however often the step is run."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(derive_seed(seed, step))
+    return gen
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` with its inside recomputed in the backward
+    (``jax.checkpoint``); ``fn`` must build its own generator."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _background(cfg: TraceConfig, d):
     if cfg.background is not None:
         return vec3(*(torch.full_like(d[0], float(c)) for c in cfg.background))
@@ -82,26 +115,29 @@ class _Vertex(NamedTuple):
 
 
 def _eval_vertex(
-    scene: SceneData, cfg: TraceConfig, o, d, tm, throughput, alive, gen: torch.Generator
+    scene: SceneData, cfg: TraceConfig, o, d, tm, throughput, alive, gen: torch.Generator,
+    recompute_t: bool = True,
 ) -> _Vertex:
     """One path vertex: closest hit -> emitted -> scatter -> MIS sample.
 
     Semantics of ray_color (main.rs:233-278): the specular branch carries
     attenuation without emission; the diffuse branch samples a 50/50
     mixture of the lights and the cosine lobe; a mixture pdf <= 0 or NaN
-    kills the sample with its radiance kept.
+    kills the sample with its radiance kept.  ``recompute_t`` goes to
+    :func:`closest_hit`: the forward-only schedules pass False.
     """
     n = tm.shape[0]
     has_lights = len(scene.stats.light_ids) > 0
 
     # Park dead lanes far outside every AABB so tree walks reject them at
     # the root (1e6, beyond any library scene; 1e30 would overflow when
-    # squared in the sphere quadratic).
+    # squared in the sphere quadratic, and its non-finite primals would
+    # poison the backward: 0 * inf = NaN on the masked lanes).
     o = torch.where(alive[None], o, 1e6)
     d = torch.where(alive[None], d, 1.0)
 
     with span("vertex.closest_hit"):
-        hit, shade = closest_hit(scene, o, d, tm, cfg.t_min, float("inf"), gen)
+        hit, shade = closest_hit(scene, o, d, tm, cfg.t_min, float("inf"), gen, recompute_t)
     with span("vertex.shading"):
         tex_val = texture_value(scene.textures, shade, hit, scene.stats.features)
         em = emitted(shade, hit, tex_val)
@@ -169,19 +205,21 @@ def _first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort((~mask).to(torch.uint8), stable=True).indices[:k]
 
 
-def trace(scene: SceneData, o, d, tm, gen: torch.Generator, cfg: TraceConfig) -> torch.Tensor:
+def trace(scene: SceneData, o, d, tm, seed: int, cfg: TraceConfig) -> torch.Tensor:
     """Trace a wavefront to completion -> radiance (3, N).
 
     The fixed-depth loop of the JAX package's ``trace``: ``max_depth``
     vertices, every one at full wavefront width, with dead lanes masked.
-    Its trip count is fixed, so it never reads a count on the host.  For
-    forward renders :func:`trace_regen` is faster.
+    Its trip count is fixed, so it never reads a count on the host.
+    Reverse-differentiable: bounce ``b`` is checkpointed and draws from
+    ``step_generator(seed, b + 1)``.  For forward renders
+    :func:`trace_regen` is faster.
     """
     n = tm.shape[0]
-    throughput = torch.ones((3, n), dtype=torch.float32, device=o.device)
-    radiance = torch.zeros((3, n), dtype=torch.float32, device=o.device)
-    alive = torch.ones((n,), dtype=torch.bool, device=o.device)
-    for _ in range(cfg.max_depth):
+    dev = o.device
+
+    def bounce(b, o, d, tm, throughput, radiance, alive):
+        gen = step_generator(seed, b + 1, dev)
         vx = _eval_vertex(scene, cfg, o, d, tm, throughput, alive, gen)
         radiance = radiance + vx.radiance_add  # masked by `alive`
         cont = vx.cont
@@ -189,8 +227,17 @@ def trace(scene: SceneData, o, d, tm, gen: torch.Generator, cfg: TraceConfig) ->
         d = torch.where(cont[None], vx.d, d)
         tm = torch.where(cont, vx.tm, tm)
         throughput = torch.where(cont[None], vx.throughput, throughput)
-        alive = cont
-    return radiance
+        return o, d, tm, throughput, radiance, cont
+
+    carry = (
+        o, d, tm,
+        torch.ones((3, n), dtype=torch.float32, device=dev),
+        torch.zeros((3, n), dtype=torch.float32, device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev),
+    )
+    for b in range(cfg.max_depth):
+        carry = _checkpointed(bounce, b, *carry)
+    return carry[4]
 
 
 def _pool_reserve(want: torch.Tensor, remaining: torch.Tensor, spp_par: int):
@@ -234,7 +281,7 @@ def _regen_step(scene, cfg, gen, gen_rays, lanes: _Lanes, reserve=None):
     grants one.  With ``gen_rays`` None the lanes owe nothing (the global
     pool's drains): no lane starts a sample and no ray is generated."""
     o, d, tm, th, rad, need, alive, depth, pix = lanes
-    vx = _eval_vertex(scene, cfg, o, d, tm, th, alive, gen)
+    vx = _eval_vertex(scene, cfg, o, d, tm, th, alive, gen, recompute_t=False)  # forward only
     rad = rad + vx.radiance_add  # masked by `alive`
     depth = depth + 1
     cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
@@ -433,7 +480,7 @@ def _trace_global(scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par):
             go = go and (rem > 0 or n_work > n2)
         if not go:
             break
-        vx = _eval_vertex(scene, cfg, o, d, tm, throughput, working, gen)
+        vx = _eval_vertex(scene, cfg, o, d, tm, throughput, working, gen, recompute_t=False)
         depth = depth + 1
         cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
         finished = working & ~cont
@@ -524,3 +571,172 @@ def trace_regen(
             pixel_pool=schedule is Schedule.PIXEL, do_sort=do_sort,
         )
     return (radiance, iters) if return_iters else radiance
+
+
+def measure_regen_handoff(
+    scene: SceneData,
+    gen_rays,
+    pix0: torch.Tensor,
+    spp_seq: int,
+    seed: int,
+    cfg: TraceConfig,
+    spp_par: int,
+) -> int:
+    """Run the pixel-pool schedule that :func:`trace_regen_diff` replays,
+    forward, and return the iteration at which at most N/4 lanes are
+    still alive: the narrow drain's handoff point.  A lane idles only
+    when its own pixel's pool is empty, so by then all but the hardest
+    pixels' pools have drained.  Forward only, under ``torch.no_grad``;
+    it reads the live count on the host every iteration."""
+    n = pix0.shape[0]
+    dev = pix0.device
+    remaining = torch.full((n // spp_par,), spp_par * (spp_seq - 1), dtype=torch.int64, device=dev)
+
+    def reserve(want):
+        nonlocal remaining
+        start, remaining = _pool_reserve(want, remaining, spp_par)
+        return start
+
+    max_iter = (spp_seq + 1) * cfg.max_depth + 2
+    it = 0
+    with torch.no_grad():
+        o, d, tm = gen_rays(step_generator(seed, 0, dev), pix0)
+        lanes = _Lanes(
+            o, d, tm,
+            th=torch.ones((3, n), dtype=torch.float32, device=dev),
+            rad=torch.zeros((3, n), dtype=torch.float32, device=dev),
+            need=torch.zeros((n,), dtype=torch.int64, device=dev),
+            alive=torch.ones((n,), dtype=torch.bool, device=dev),
+            depth=torch.zeros((n,), dtype=torch.int32, device=dev),
+            pix=pix0,
+        )
+        while it < max_iter and int(lanes.alive.sum()) > max(n // 4, 1):
+            lanes = _regen_step(scene, cfg, step_generator(seed, it + 1, dev), gen_rays, lanes, reserve)
+            it += 1
+    return it
+
+
+def trace_regen_diff(
+    scene: SceneData,
+    gen_rays,  # (gen, pix i64[N]) -> (o (3,N), d (3,N), tm (N,))
+    pix0: torch.Tensor,  # i64[N] lane -> pixel (fixed)
+    spp_seq: int,  # samples each lane must complete
+    n_iters: int,  # fixed trip count of the main phase
+    seed: int,
+    cfg: TraceConfig,
+    spp_par: Optional[int] = None,  # lanes per pixel: the pixel-pooled schedule
+    drain_iters: int = 0,  # trip count of the narrow-drain cascade (pooled only)
+):
+    """Differentiable path regeneration -> ``(radiance (3, N), done i32[N])``.
+
+    The regeneration schedule of :func:`trace_regen` (a lane whose sample
+    ends starts its pixel's next one at once) over a fixed number of
+    iterations, so the loop needs no count on the host and
+    ``torch.autograd`` differentiates it; each iteration is checkpointed.
+    With ``spp_par`` the lanes of a pixel share its pool of
+    ``spp_par * spp_seq`` samples; without, each lane runs ``spp_seq``.
+
+    A sample's radiance accumulates in flight and joins ``radiance`` when
+    the sample ends; ``done`` counts the ended samples.  A sample still in
+    flight at the end contributes nothing, and ``radiance / done`` stays a
+    consistent estimator; with ``n_iters >= spp_seq * max_depth`` every
+    sample ends and the estimator is exactly :func:`trace`'s
+    (:func:`renderer.regen_iters_estimate` picks a smaller trip count).
+
+    **Narrow drain** (``drain_iters > 0``, pooled): once the pools empty no
+    lane regenerates, so the survivors are compacted (stable, indices
+    without gradient) into an N/4 wavefront and finished there; when
+    N >= 16,384, after 8 iterations at N/4 they are compacted again into
+    N/16 for the rest.  The values move by a
+    differentiable gather, and each stage's finished samples go back to
+    their lanes by an out-of-place ``index_add`` (unique indices, so its
+    backward is a gather).  Survivors beyond the width, or still alive at
+    the end, count as truncated.
+
+    Step ``s`` draws from ``step_generator(seed, s)``: 0 for the first
+    rays, ``it + 1`` for iteration ``it``, the drains continuing the count.
+    Discrete decisions (hit winner, branch, light pick, termination, the
+    schedule) are piecewise constant, so the gradients are the
+    reparameterised path-replay gradients of :func:`trace`.
+    """
+    dev = pix0.device
+    n = pix0.shape[0]
+    pooled = spp_par is not None
+    o, d, tm = gen_rays(step_generator(seed, 0, dev), pix0)
+    zeros3 = torch.zeros((3, n), dtype=torch.float32, device=dev)
+
+    def body(it, o, d, tm, th, sample_rad, radiance, done, depth, alive, remaining):
+        gen = step_generator(seed, it + 1, dev)
+        working = alive if pooled else done < spp_seq
+        vx = _eval_vertex(scene, cfg, o, d, tm, th, working, gen)
+        sample_rad = sample_rad + vx.radiance_add  # masked by `working`
+        depth = depth + 1
+        cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
+        finished = working & ~cont
+        radiance = radiance + torch.where(finished[None], sample_rad, 0.0)
+        sample_rad = torch.where(finished[None], 0.0, sample_rad)
+        done = done + finished.to(done.dtype)
+        if pooled:
+            start, remaining = _pool_reserve(finished | ~alive, remaining, spp_par)
+            alive = cont | start
+        else:
+            start = finished  # quota: lanes regenerate unconditionally
+        o_new, d_new, tm_new = gen_rays(gen, pix0)
+        o = torch.where(start[None], o_new, torch.where(cont[None], vx.o, o))
+        d = torch.where(start[None], d_new, torch.where(cont[None], vx.d, d))
+        tm = torch.where(start, tm_new, torch.where(cont, vx.tm, tm))
+        th = torch.where(start[None], 1.0, torch.where(cont[None], vx.throughput, th))
+        depth = torch.where(start, 0, depth)
+        return o, d, tm, th, sample_rad, radiance, done, depth, alive, remaining
+
+    carry = (
+        o, d, tm,
+        torch.ones((3, n), dtype=torch.float32, device=dev),
+        zeros3,
+        zeros3,
+        torch.zeros((n,), dtype=torch.int32, device=dev),
+        torch.zeros((n,), dtype=torch.int32, device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev),
+        torch.full((n // spp_par,), spp_par * (spp_seq - 1), dtype=torch.int64, device=dev)
+        if pooled else None,
+    )
+    for it in range(n_iters):
+        carry = _checkpointed(body, it, *carry)
+    o, d, tm, th, sample_rad, radiance, done, depth, alive, _ = carry
+    if not pooled or drain_iters <= 0:
+        return radiance, done
+
+    def drain_body(step, o, d, tm, th, sr, alive, depth):
+        vx = _eval_vertex(scene, cfg, o, d, tm, th, alive, step_generator(seed, step + 1, dev))
+        sr = sr + vx.radiance_add  # masked by `alive`
+        depth = depth + 1
+        cont = vx.cont & (depth < cfg.max_depth)  # cont implies alive
+        o = torch.where(cont[None], vx.o, o)
+        d = torch.where(cont[None], vx.d, d)
+        tm = torch.where(cont, vx.tm, tm)
+        th = torch.where(cont[None], vx.throughput, th)
+        return o, d, tm, th, sr, cont, depth
+
+    # occupancy keeps decaying through the drain (N/4 alive at handoff,
+    # ~1% within 8 iterations on cornell), so the tail runs at N/16
+    if n >= 16 * 1024:
+        stages = [(n // 4, min(8, drain_iters)), (n // 16, max(drain_iters - 8, 0))]
+    else:
+        stages = [(max(n // 4, 1), drain_iters)]
+    lanes = torch.arange(n, device=dev)  # compacted lane -> original lane
+    cur = (o, d, tm, th, sample_rad, alive, depth)
+    step = n_iters
+    for width, iters in stages:
+        if iters == 0:
+            continue
+        perm = _first_true(cur[5], width)
+        lanes = lanes[perm]
+        cur = tuple(x[..., perm] for x in cur)
+        alive0 = cur[5]
+        for j in range(iters):
+            cur = _checkpointed(drain_body, step + j, *cur)
+        fin = alive0 & ~cur[5]  # samples that ended inside this stage
+        radiance = radiance.index_add(1, lanes, torch.where(fin[None], cur[4], 0.0))
+        done = done.index_add(0, lanes, fin.to(done.dtype))
+        step += iters
+    return radiance, done

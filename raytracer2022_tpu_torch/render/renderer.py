@@ -7,9 +7,13 @@ they run over horizontal image strips; each launch traces ``spp_par`` lanes
 per pixel, each running up to 32 samples in sequence through
 :func:`integrator.trace_regen`.  With ``regen=False`` each launch traces a
 batch of samples per pixel through the fixed-depth :func:`integrator.trace`
-(:func:`render_batch`).  Launch ``i`` draws from a fresh
-``torch.Generator`` seeded from ``(seed, i)``, so a resumed render gives
-the identical image.
+(:func:`render_batch`).  Launch ``i`` draws from generators seeded from
+``(seed, i)``, so a resumed render gives the identical image.
+
+The differentiable launches, :func:`render_batch` and
+:func:`render_batch_regen_diff`, take an integer seed (the integrator's
+generator rule); :func:`regen_iters_estimate` picks the latter's trip
+counts from one forward run.
 """
 
 from __future__ import annotations
@@ -25,7 +29,16 @@ import torch
 from ..scene.types import SceneData
 from .camera import Camera, get_rays
 from .film import tonemap_u8
-from .integrator import Schedule, TraceConfig, trace, trace_regen
+from .integrator import (
+    Schedule,
+    TraceConfig,
+    derive_seed,
+    measure_regen_handoff,
+    step_generator,
+    trace,
+    trace_regen,
+    trace_regen_diff,
+)
 
 # sequential samples per lane in one launch: every launch pays the
 # scheduler's low-occupancy tail once, and more samples amortise it
@@ -57,35 +70,31 @@ class RenderConfig:
         )
 
 
-def launch_generator(seed: int, launch: int, device) -> torch.Generator:
-    """A fresh generator for launch ``launch`` of a render seeded ``seed``."""
-    state = np.random.SeedSequence([seed, launch]).generate_state(1, np.uint64)[0]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state))
-    return gen
-
-
 def render_batch(
     scene: SceneData,
     camera: Camera,
-    gen: torch.Generator,
+    seed: int,
     width: int,
     height: int,
     spp: int,
     cfg: TraceConfig,
 ) -> torch.Tensor:
     """One launch of the fixed-depth :func:`integrator.trace` -> (3, H, W)
-    radiance SUM over ``spp`` samples per pixel.  Lanes are
-    pixel-contiguous (the ``spp`` lanes of a pixel are adjacent); pixel
-    (x, y) uses u = (x + U)/(W-1), v = (y + U)/(H-1) (main.rs:144-148)."""
+    radiance SUM over ``spp`` samples per pixel; reverse-differentiable in
+    the scene's tables and the camera.  Lanes are pixel-contiguous (the
+    ``spp`` lanes of a pixel are adjacent); pixel (x, y) uses
+    u = (x + U)/(W-1), v = (y + U)/(H-1) (main.rs:144-148).  The camera
+    rays draw from ``step_generator(seed, 0)``, bounce ``b`` from step
+    ``b + 1``."""
     n = height * width * spp
     dev = scene.device
+    gen = step_generator(seed, 0, dev)
     ys = torch.arange(height, dtype=torch.float32, device=dev).repeat_interleave(width * spp)
     xs = torch.arange(width, dtype=torch.float32, device=dev).repeat_interleave(spp).repeat(height)
     u = (xs + torch.rand((n,), generator=gen, device=gen.device)) / (width - 1)
     v = (ys + torch.rand((n,), generator=gen, device=gen.device)) / (height - 1)
     o, d, tm = get_rays(camera, u, v, gen)
-    radiance = trace(scene, o, d, tm, gen, cfg)  # (3, N)
+    radiance = trace(scene, o, d, tm, seed, cfg)  # (3, N)
     return radiance.reshape(3, height, width, spp).sum(dim=3)
 
 
@@ -132,6 +141,74 @@ def render_batch_regen(
     )
     img = radiance.reshape(3, spp_par, rows, width).sum(dim=1)
     return (img, iters) if return_iters else img
+
+
+def render_batch_regen_diff(
+    scene: SceneData,
+    camera: Camera,
+    seed: int,
+    width: int,
+    height: int,
+    spp_par: int,  # lanes per pixel
+    spp_seq: int,  # samples each lane completes in sequence
+    n_iters: int,  # fixed trip count (integrator.trace_regen_diff)
+    cfg: TraceConfig,
+    n_drain: int = 0,  # narrow-drain trip count (integrator.trace_regen_diff)
+):
+    """Differentiable regeneration render -> ``((3, H, W) radiance sum over
+    the completed samples, (H, W) i32 completed-sample counts)``.
+
+    The pixel mean is ``sum / counts``; the counts are ``spp_par * spp_seq``
+    everywhere when ``n_iters >= spp_seq * max_depth``.  Reverse-
+    differentiable in the scene's tables and the camera; the counts are
+    integers, so the normalisation needs no detach."""
+    n = height * width * spp_par
+    pix0 = torch.arange(n, device=scene.device) % (height * width)
+    radiance, done = trace_regen_diff(
+        scene, _regen_gen_rays(camera, width, height), pix0, spp_seq, n_iters, seed, cfg,
+        spp_par=spp_par, drain_iters=n_drain,
+    )
+    img = radiance.reshape(3, spp_par, height, width).sum(dim=1)
+    counts = done.reshape(spp_par, height, width).sum(dim=0)
+    return img, counts
+
+
+def regen_iters_estimate(
+    scene: SceneData,
+    camera: Camera,
+    width: int,
+    height: int,
+    spp_par: int,
+    spp_seq: int,
+    cfg: TraceConfig,
+    seed: int = 0,
+    split_drain: bool = False,
+):
+    """Trip counts for :func:`render_batch_regen_diff`, from one forward
+    run: ``int(measured * 1.3) + 8 + max_depth``, clamped to the exact
+    bound ``spp_seq * max_depth + 1``.
+
+    The single-phase form measures the global-pool schedule's iterations
+    before its drains and budgets a whole ``max_depth`` for the survivors,
+    which the one-phase integrator runs at full width.  ``split_drain``
+    returns ``(n_iters, n_drain)`` for the two-phase integrator: the
+    measured handoff of the pixel-pooled schedule itself
+    (:func:`integrator.measure_regen_handoff`; the global pool drains
+    faster and would overshoot) with a small jitter allowance, and
+    ``max_depth`` drain iterations."""
+    n = height * width * spp_par
+    pix0 = torch.arange(n, device=scene.device) % (height * width)
+    gen_rays = _regen_gen_rays(camera, width, height)
+    bound = spp_seq * cfg.max_depth + 1
+    if split_drain:
+        iters = measure_regen_handoff(scene, gen_rays, pix0, spp_seq, seed, cfg, spp_par=spp_par)
+        return min(int(iters * 1.03) + 3, bound), cfg.max_depth
+    with torch.no_grad():
+        _, iters = trace_regen(
+            scene, gen_rays, pix0, spp_seq, step_generator(seed, 0, scene.device), cfg,
+            spp_par=spp_par, return_iters=True,
+        )
+    return min(int(iters["pool"] * 1.3) + 8 + cfg.max_depth, bound)
 
 
 def _fingerprint(scene: SceneData, camera: Camera) -> float:
@@ -208,7 +285,7 @@ def render_sum_n(
                 continue
             t0 = time.perf_counter()
             part, iters = render_batch_regen(
-                scene, camera, launch_generator(cfg.seed, launch, device),
+                scene, camera, step_generator(cfg.seed, launch, device),
                 cfg.width, cfg.height, batch, chunk, tcfg, row0=r0, rows=rs,
                 return_iters=True,
             )
@@ -242,8 +319,7 @@ def _render_fixed_depth(scene, camera, cfg: RenderConfig, batch: int, progress, 
     for i in range(n_batches):
         t0 = time.perf_counter()
         total += render_batch(
-            scene, camera, launch_generator(cfg.seed, i, device),
-            cfg.width, cfg.height, batch, tcfg,
+            scene, camera, derive_seed(cfg.seed, i), cfg.width, cfg.height, batch, tcfg,
         )
         if launch_log is not None:
             if device.type == "cuda":

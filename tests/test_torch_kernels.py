@@ -1,5 +1,6 @@
-"""Kernel K1 on the card against its plain PyTorch version, and its visit
-counts against the reference walk.
+"""Kernel K1 on the card against its plain PyTorch version, its visit
+counts against the reference walk, and its gradients (through the
+differentiable t recompute) against the cluster walk's.
 
 No JAX here, so the file also runs on a card machine without it:
 
@@ -9,6 +10,8 @@ Tests marked ``cuda`` skip without a CUDA device; the parity contract is
 chip_smoke.check_parity.  Kernel tests run both instantiations: the group
 arrays in shared memory (where they fit) and in global memory.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -193,6 +196,36 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
         traverse_bvh8(tree, TRIANGLE, o.T.contiguous().T, d, tm, T_MIN)
     with pytest.raises(ValueError):
         traverse_bvh8(scene.bvh8[0], TRIANGLE, o, d, tm, T_MIN)  # tree left on the CPU
+
+
+@pytest.mark.cuda
+def test_material_gradient_k1_matches_cluster_walk(cuda_device):
+    """The gradient convention on the card: K1 and the cluster walk search
+    detached and the winner's t is recomputed, so the 64-triangle scene's
+    texture-colour gradients agree (tests/test_bvh8.py:162-208), and K1
+    really ran."""
+    scene, cam_kw = chip_smoke.tri64_scene(SceneBuilder(), device=cuda_device)
+    cam = make_camera(**cam_kw, device=cuda_device)
+    before = bvh8.LAUNCHES
+    g_k1 = chip_smoke.material_grad(scene, cam)
+    assert bvh8.LAUNCHES > before
+    g_walk = chip_smoke.material_grad(dataclasses.replace(scene, bvh8=(None,)), cam)
+    assert np.isfinite(g_k1).all() and np.abs(g_k1).max() > 0
+    np.testing.assert_allclose(g_k1, g_walk, rtol=chip_smoke.MAT_RTOL, atol=chip_smoke.MAT_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder", ["sphere", "triangle"])
+def test_geometry_gradient_k1_matches_cluster_walk(cuda_device, builder):
+    """Geometry gradients through K1's winner rows, re-fetched from
+    scene.params, against the cluster walk's (tests/test_grad_geom.py:128-162)."""
+    build = chip_smoke.geom_sphere_scene if builder == "sphere" else chip_smoke.geom_triangle_scene
+    scene, cam_kw, _ = build(SceneBuilder(), device=cuda_device)
+    cam = make_camera(**cam_kw, device=cuda_device)
+    before = bvh8.LAUNCHES
+    g_k1 = chip_smoke.geometry_grad(scene, cam)
+    assert bvh8.LAUNCHES > before
+    chip_smoke.check_geometry_parity(g_k1, chip_smoke.geometry_grad(dataclasses.replace(scene, bvh8=(None,)), cam))
 
 
 def test_unsupported_kind_is_refused():

@@ -59,7 +59,7 @@ def test_render_matches_jax_within_noise(name):
         for s in (0, 1)
     ]
     tcfg = TraceConfig(max_depth=50, background=tbg)
-    got = R.render_batch_regen(ts, make_camera(**tkw, device="cpu"), R.launch_generator(0, 0, "cpu"),
+    got = R.render_batch_regen(ts, make_camera(**tkw, device="cpu"), R.step_generator(0, 0, "cpu"),
                                W, H, SPP_PAR, SPP_SEQ, tcfg).numpy() / n
     assert np.isfinite(got).all() and got.mean() > 0.05
     gap = np.abs(got - ref[0]).mean()

@@ -57,7 +57,7 @@ def test_counts_exact_through_the_drains(schedule, mirrors):
     misrouted by the pool, the leftover-quota split or the drains."""
     cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0))
     img, iters = R.render_batch_regen(
-        _dome(mirrors), make_camera(**CAM, device="cpu"), R.launch_generator(11, 0, "cpu"), 32, 32, 8, 40, cfg,
+        _dome(mirrors), make_camera(**CAM, device="cpu"), R.step_generator(11, 0, "cpu"), 32, 32, 8, 40, cfg,
         return_iters=True, schedule=schedule,
     )
     _assert_exact_emission(img, 8 * 40)
@@ -68,7 +68,7 @@ def test_counts_exact_through_the_drains(schedule, mirrors):
 
 def test_pixel_pool_is_the_default_above_32_sequential_samples():
     cfg = TraceConfig(max_depth=4, background=(0.0, 0.0, 0.0))
-    img = R.render_batch_regen(_dome(False), make_camera(**CAM, device="cpu"), R.launch_generator(1, 0, "cpu"),
+    img = R.render_batch_regen(_dome(False), make_camera(**CAM, device="cpu"), R.step_generator(1, 0, "cpu"),
                                8, 8, 2, 33, cfg)
     _assert_exact_emission(img, 2 * 33)
 
@@ -81,7 +81,7 @@ def test_sorted_quota_counts_exact():
     assert scene.use_bvh
     cfg = TraceConfig(max_depth=50, background=(0.0, 0.0, 0.0), sort_rays=True)
     img, iters = R.render_batch_regen(
-        scene, make_camera(**CAM, device="cpu"), R.launch_generator(2, 0, "cpu"), 16, 16, 8, 6, cfg,
+        scene, make_camera(**CAM, device="cpu"), R.step_generator(2, 0, "cpu"), 16, 16, 8, 6, cfg,
         return_iters=True,
     )
     _assert_exact_emission(img, 8 * 6)
@@ -170,9 +170,9 @@ def test_trace_matches_trace_regen_in_distribution():
     and their per-pixel gap is no larger than two regen seeds' gap."""
     scene, cam = _lit_scene()
     cfg = TraceConfig(max_depth=8, background=(0.0, 0.0, 0.0))
-    fixed = R.render_batch(scene, cam, R.launch_generator(0, 0, "cpu"), 16, 16, 64, cfg).numpy() / 64
+    fixed = R.render_batch(scene, cam, 0, 16, 16, 64, cfg).numpy() / 64
     regen = [
-        R.render_batch_regen(scene, cam, R.launch_generator(s, 0, "cpu"), 16, 16, 4, 16, cfg).numpy() / 64
+        R.render_batch_regen(scene, cam, R.step_generator(s, 0, "cpu"), 16, 16, 4, 16, cfg).numpy() / 64
         for s in (1, 2)
     ]
     assert np.isfinite(fixed).all() and fixed.mean() > 0.05
@@ -195,5 +195,5 @@ def test_render_sum_n_fixed_depth_launches():
     again, _ = R.render_sum_n(scene, cam, cfg)
     np.testing.assert_array_equal(total.numpy(), again.numpy())
     tcfg = cfg.trace_cfg()
-    parts = sum(R.render_batch(scene, cam, R.launch_generator(0, i, "cpu"), 8, 6, 4, tcfg) for i in range(3))
+    parts = sum(R.render_batch(scene, cam, R.derive_seed(0, i), 8, 6, 4, tcfg) for i in range(3))
     np.testing.assert_allclose(total.numpy(), parts.numpy(), rtol=1e-6)

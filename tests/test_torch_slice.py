@@ -56,7 +56,7 @@ def test_regen_pool_counts_exact(mirror, w, h, spp_par, spp_seq):
     scene = _dome(mirror)
     cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 60, 1.0, device="cpu")
     cfg = TraceConfig(max_depth=16, background=(0.0, 0.0, 0.0))
-    gen = R.launch_generator(11, 0, "cpu")
+    gen = R.step_generator(11, 0, "cpu")
     img, iters = R.render_batch_regen(
         scene, cam, gen, w, h, spp_par, spp_seq, cfg, return_iters=True
     )
@@ -84,7 +84,7 @@ def test_stand_in_mesh_matches_jax_within_noise():
     ) / 32
     tcfg = TraceConfig(max_depth=50, background=(0.0, 0.0, 0.0))
     r = R.render_batch_regen(
-        ts, make_camera(**cam_kw, device="cpu"), R.launch_generator(5, 0, "cpu"), 24, 24, 4, 8, tcfg
+        ts, make_camera(**cam_kw, device="cpu"), R.step_generator(5, 0, "cpu"), 24, 24, 4, 8, tcfg
     ).numpy() / 32
     assert np.isfinite(r).all() and r.mean() > 0.05
     np.testing.assert_allclose(r.mean(), a.mean(), rtol=0.05)
