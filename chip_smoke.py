@@ -18,7 +18,11 @@ times the cluster walk against K1 on one sphere tree.  The ``diff`` phase
 drives the differentiable path: K1 against the cluster walk under
 gradients, a central difference, fwd+bwd through ``trace_regen_diff`` on
 ``cornell_box`` (256x256 x 64 spp, depth 50) and on the stand-in mesh
-through K1 (128x128 x 32 spp), the fit step, and the fit demo.  Every phase that
+through K1 (128x128 x 32 spp), the fit step, and the fit demo.  The
+``multi`` phase starts ranks of ``parallel/worker.py``: the stand-in mesh
+render sharded over one rank (NCCL) and two ranks on one card (gloo), and
+over two cards (NCCL) where there are two, the sharded fit step on two
+ranks, and the dry run.  Every phase that
 fails makes the script exit non-zero; nothing falls back to the CPU.  The
 last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before the card's name and power limit is the kernel table as JSON.
@@ -86,6 +90,18 @@ def stand_in_mesh_scene(builder, nu: int = 96, nv: int = 68) -> dict:
         time0=0.0,
         time1=1.0,
     )
+
+
+def two_rect_scene(builder) -> dict:
+    """The scene of the JAX package's tests/test_parallel.py: a rect light
+    above a lambertian floor, added to ``builder`` (either package's).
+    Returns the camera kwargs; the background is black."""
+    b = builder
+    light = b.rect_xz(-1, 1, -1, 1, 3.9, b.diffuse_light((8.0, 8.0, 8.0)))
+    b.flip_face(light)
+    b.add_light(light)
+    b.rect_xz(-4, 4, -4, 4, 0.0, b.lambertian((0.6, 0.4, 0.3)))
+    return dict(lookfrom=(0, 2, -8), lookat=(0, 1, 0), vup=(0, 1, 0), vfov=40, aspect_ratio=1.0)
 
 
 def earth_stand_in(seed: int = 0, width: int = 1024, height: int = 512) -> np.ndarray:
@@ -651,7 +667,7 @@ def print_ptxas(log: str) -> None:
 
 FILE_FREE = ["random_scene", "two_spheres", "two_perlin_spheres", "simple_light", "cornell_smoke",
              "cornell_box_book"]
-SMALL = 96  # library renders through the CLI: 96x96 x 8 spp
+SMALL = 64  # library renders through the CLI: 64x64 x 8 spp
 SMALL_SPP = 8
 MAX_REL = 0.08  # card-vs-CPU and render-vs-render channel means (Monte-Carlo noise)
 CPU_SEEDS = 8  # card-vs-CPU checks: CPU renders, one per seed, give the seed-to-seed spread
@@ -1140,6 +1156,147 @@ def phase_diff(dev, smi) -> dict:
     return out
 
 
+MULTI_TIMEOUT_S = 300  # each launch of phase multi; a rank that fails ends it at once
+MULTI_FIT_STEPS = 4  # one warm-up, then the median of 3
+
+
+def _launch(n: int, task: str, device: str, backend: str, out: str, *extra) -> list:
+    """``n`` ranks of the port's worker on ``device`` over ``backend``
+    (parallel/worker.py) -> each rank's results; raises if any rank fails."""
+    import sys
+
+    from raytracer2022_tpu_torch.parallel.worker import launch_local, rank_path
+
+    launch_local(n, [sys.executable, "-m", "raytracer2022_tpu_torch.parallel.worker", "--device", device,
+                     "--backend", backend, "--task", task, "--out", out, *extra], MULTI_TIMEOUT_S)
+    res = []
+    for k in range(n):
+        with np.load(rank_path(out, k)) as f:
+            res.append({key: f[key] for key in f.files})
+    return res
+
+
+def _mesh_args() -> list:
+    """The worker's arguments for the stand-in mesh at 600x600 x SPP, depth 50."""
+    return ["--scene", "chip_smoke:stand_in_mesh_scene", "--width", str(WIDTH), "--height", str(HEIGHT),
+            "--spp", str(SPP), "--depth", str(DEPTH)]
+
+
+def _sharded_mesh_render(label: str, n: int, device: str, backend: str, out: str, ref_means, smi: str) -> dict:
+    """The stand-in mesh, 600x600 x SPP, depth 50, through
+    render_sharded_regen_sum on ``n`` ranks: the rate by rank 0's wall
+    from a barrier to after the all_reduce, each rank's K1 launches and
+    regeneration iterations, their work-normalised efficiency
+    mean(iters) / max(iters), every rank's sum identical, and the channel
+    means against the one-process render's (``ref_means``)."""
+    res = _launch(n, "regen", device, backend, out, *_mesh_args())
+    spp = int(res[0]["n"])
+    iters = [int(r["iters"].sum()) for r in res]
+    k1 = [int(r["k1_launches"]) for r in res]
+    means = (res[0]["sum"] / spp).mean(axis=(1, 2)).astype(np.float64)
+    rel = _rel(means, ref_means)
+    rec = {"world": n, "device": device, "backend": backend, "spp": spp, "seconds": float(res[0]["seconds"]),
+           "mpaths": WIDTH * HEIGHT * spp / float(res[0]["seconds"]) / 1e6, "k1": k1, "iters": iters,
+           "iters_by_strip": [r["iters"].tolist() for r in res], "efficiency": float(np.mean(iters)) / max(iters),
+           "rank_seconds": [float(r["seconds"]) for r in res], "channel_means": means.tolist()}
+    print(f"multi {label}: stand-in mesh {WIDTH}x{HEIGHT} x {spp} spp, depth {DEPTH}, {n} rank(s) on {device} over "
+          f"{backend}: {rec['seconds']:.3f} s (rank 0, barrier to all_reduce), {rec['mpaths']:.3f} Mpaths/s; "
+          f"K1 launches by rank {k1}; iterations by rank {iters} (by strip {rec['iters_by_strip']}), "
+          f"mean/max {rec['efficiency']:.4f}; channel means {means.round(4).tolist()} vs one process "
+          f"{np.round(ref_means, 4).tolist()} (rel {rel.round(4).tolist()}) ({smi})", flush=True)
+    assert all(np.array_equal(r["sum"], res[0]["sum"]) for r in res), f"{label}: the ranks' sums differ"
+    assert all(k > 0 for k in k1), f"{label}: a rank never launched K1"
+    assert np.isfinite(means).all() and (rel < MAX_REL).all(), f"{label}: the sharded render disagrees"
+    return rec
+
+
+def phase_multi(dev, smi, mesh_means, one_device_fwd_bwd_s: float) -> dict:
+    """Several processes through parallel/worker.py: the stand-in mesh
+    render sharded over 1 rank (NCCL) and 2 ranks on one card (gloo); the
+    sharded fit step at the fwd+bwd cornell cell's size on 2 ranks of one
+    card; the dry run on 2 ranks of one card; and, where two cards are
+    visible, :func:`phase_multi_cards`."""
+    import os
+    import tempfile
+
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    out = {"cards": n_cards}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["world1_nccl"] = _sharded_mesh_render("world 1", 1, "cuda:0", "nccl", os.path.join(tmp, "w1.npz"),
+                                                  mesh_means, smi)
+        out["world2_gloo"] = w2 = _sharded_mesh_render("world 2, one card", 2, "cuda:0", "gloo",
+                                                       os.path.join(tmp, "w2.npz"), mesh_means, smi)
+        print(f"multi: world 2 on one card at {w2['mpaths'] / out['world1_nccl']['mpaths']:.3f}x world 1's rate "
+              f"(time-sliced on one card, not scaling across cards) ({smi})", flush=True)
+
+        res = _launch(2, "fit_regen", "cuda:0", "gloo", os.path.join(tmp, "fit.npz"), "--scene", "cornell_box",
+                      "--width", str(DIFF_SIZE), "--height", str(DIFF_SIZE), "--spp", str(DIFF_SPP_PAR * DIFF_SPP_SEQ),
+                      "--depth", str(DEPTH), "--steps", str(MULTI_FIT_STEPS))
+        assert all(np.array_equal(r["params"], res[0]["params"]) for r in res), "fit: the ranks' parameters differ"
+        assert all(np.array_equal(r["loss"], res[0]["loss"]) for r in res) and np.isfinite(res[0]["loss"]).all()
+        step_s = res[0]["step_seconds"].tolist()
+        out["fit"] = fit = {"regen_iters": int(res[0]["regen_iters"]), "step_seconds": step_s,
+                            "median_s": float(np.median(step_s[1:])), "loss": res[0]["loss"].tolist(),
+                            "k1": [int(r["k1_launches"]) for r in res], "one_device_fwd_bwd_s": one_device_fwd_bwd_s}
+        print(f"multi fit: cornell_box {DIFF_SIZE}x{DIFF_SIZE} x {DIFF_SPP_PAR * DIFF_SPP_SEQ} spp, depth {DEPTH}, "
+              f"2 ranks on cuda:0 over gloo, regen_iters {fit['regen_iters']}: step median {fit['median_s']:.3f} s "
+              f"of {MULTI_FIT_STEPS - 1} after a warm-up (all {np.round(step_s, 3).tolist()}), losses "
+              f"{np.round(fit['loss'], 6).tolist()}, parameters bit-identical on both ranks after every step; "
+              f"one-device fwd+bwd step of phase diff {one_device_fwd_bwd_s:.3f} s ({smi})", flush=True)
+
+        res = _launch(2, "dryrun", "cuda:0", "gloo", os.path.join(tmp, "dry.npz"))
+        out["dryrun_gloo"] = {"loss": res[0]["loss"].tolist(), "seconds": float(res[0]["seconds"])}
+        print(f"multi dryrun (gloo, one card): exit 0 on both ranks, losses {res[0]['loss'].tolist()}", flush=True)
+    if n_cards >= 2:
+        out.update(phase_multi_cards(smi, mesh_means))
+    else:
+        out["cards_nccl"] = f"not run: {n_cards} card visible"
+        print(f"multi over NCCL across two cards: not run, {n_cards} card visible", flush=True)
+    return out
+
+
+def phase_multi_cards(smi, mesh_means=None) -> dict:
+    """Ranks on several cards over NCCL: the stand-in mesh render sharded
+    over cards 0 and 1, the dry run on them, and the CLI's ``--sharded``,
+    one rank per visible card.  Without ``mesh_means`` (run alone) the
+    world-1 render on card 0 gives the reference channel means."""
+    import os
+    import tempfile
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch import cli
+
+    n_cards = torch.cuda.device_count()
+    assert n_cards >= 2, f"phase_multi_cards needs two cards, {n_cards} visible"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if mesh_means is None:
+            res = _launch(1, "regen", "cuda:0", "nccl", os.path.join(tmp, "w1.npz"), *_mesh_args())
+            mesh_means = (res[0]["sum"] / int(res[0]["n"])).mean(axis=(1, 2)).astype(np.float64)
+            print(f"multi world 1 (reference): channel means {mesh_means.round(4).tolist()}", flush=True)
+        out["world2_nccl"] = _sharded_mesh_render("world 2, two cards", 2, "cuda", "nccl",
+                                                  os.path.join(tmp, "n2.npz"), mesh_means, smi)
+        res = _launch(2, "dryrun", "cuda", "nccl", os.path.join(tmp, "dry.npz"))
+        out["dryrun_nccl"] = {"loss": res[0]["loss"].tolist(), "seconds": float(res[0]["seconds"])}
+        print(f"multi dryrun (nccl, two cards): exit 0 on both ranks, losses {res[0]['loss'].tolist()}", flush=True)
+
+        path = os.path.join(tmp, "sharded.png")
+        t0 = time.perf_counter()
+        rc = cli.main(["--scene", "cornell_box", "--width", str(WIDTH), "--height", str(HEIGHT), "--spp", str(SPP),
+                       "--sharded", "--out", path, "--quiet"])
+        dt = time.perf_counter() - t0
+        png = _read_png(path)
+        assert rc == 0 and png.shape == (HEIGHT, WIDTH, 3) and png.mean() > 1.0, "cli --sharded: bad image"
+        out["cli_sharded"] = {"ranks": n_cards, "seconds": dt, "png_mean": float(png.mean())}
+        print(f"multi cli --sharded cornell_box {WIDTH}x{HEIGHT} x {SPP} spp: {n_cards} ranks, one a card, "
+              f"{dt:.2f} s wall (rank start-up included), png mean {png.mean():.2f} ({smi})", flush=True)
+    return out
+
+
 SPANS = ("vertex.closest_hit", "closest_hit.dense", "closest_hit.packet_tree", "closest_hit.cluster_walk",
          "closest_hit.media", "closest_hit.hit_details", "vertex.shading", "vertex.sampling")
 
@@ -1325,6 +1482,7 @@ def main(argv=None) -> int:
           f"channel means {np.round(img.mean(axis=(1, 2)), 4).tolist()} ({smi})", flush=True)
     for i, rec in enumerate(launch_log):
         print(f"  launch {i}: {rec}")
+    mesh_means = img.mean(axis=(1, 2)).astype(np.float64)
 
     # --- phase 4c: K1 at the main path's shapes.  S1: the camera rays of
     # phase 3b; S2: the main path's bounce rays; S3: final_scene's 1000
@@ -1385,6 +1543,9 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     diff = phase_diff(dev, smi)
     print(f"[phase diff: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    multi = phase_multi(dev, smi, mesh_means, diff["cornell"]["fwd_bwd_s"])
+    print(f"[phase multi: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     diff_keys = ("n_iters", "n_drain", "estimate_s", "fwd_bwd_s", "bwd_s", "fwd_s", "fwd_bwd_mpaths", "fwd_mpaths",
                  "fwd_bwd_over_fwd", "peak_gib", "k1_per_step", "k1_per_forward", "completed")
     print(json.dumps({"summary": {
@@ -1394,7 +1555,7 @@ def main(argv=None) -> int:
         "cluster_walk_ms": policy["walk_ms"], "k1_sphere_ms": policy["k1_ms"],
         "fwd_bwd_cornell": {k: diff["cornell"][k] for k in diff_keys},
         "fwd_bwd_mesh": {k: diff["mesh"][k] for k in diff_keys},
-        "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "card": smi,
+        "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "card": smi,
     }}), flush=True)
 
     if args.profile:
@@ -1421,7 +1582,9 @@ def main(argv=None) -> int:
         "launches": mesh_launches,
         "launches_by_path": {"mesh": mesh_launches, "final_scene": final["k1"],
                              "mesh_fwd_bwd_step": diff["mesh"]["k1_per_step"],
-                             "mesh_diff_forward": diff["mesh"]["k1_per_forward"]},
+                             "mesh_diff_forward": diff["mesh"]["k1_per_forward"],
+                             "mesh_sharded_rank0": multi["world2_gloo"]["k1"][0],
+                             "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1]},
         "launches_per_mesh_render": mesh_launches,
         "launches_per_fwd_bwd_step": diff["mesh"]["k1_per_step"],
         "max_abs_err": max(r["max_abs_err"] for r in reports.values()),

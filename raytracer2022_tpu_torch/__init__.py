@@ -10,8 +10,9 @@ unless the caller passes ``device="cpu"``.  Renders are forward
 (``render_sum_n``) or reverse-differentiable through ``torch.autograd``
 (``render_batch``, ``render_batch_regen_diff``), and
 ``parallel.mesh.fit_step_fn`` and ``python -m raytracer2022_tpu_torch.fit``
-fit materials, textures and the camera on one device.  Multi-device
-rendering is not ported yet (ROADMAP.md, Queue 1).
+fit materials, textures and the camera.  ``parallel/`` splits a render
+and the fit step over several processes, one per rank, joined by
+``torch.distributed`` (NCCL between cards, gloo on the CPU).
 """
 
 from .render.camera import Camera, get_rays, make_camera

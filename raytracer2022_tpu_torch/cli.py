@@ -8,12 +8,20 @@ Example::
 
     python -m raytracer2022_tpu_torch.cli --scene cornell_box --width 600 \\
         --height 600 --spp 64 --out output/cornell.png
+
+With ``--coordinator host:port --num-processes N --process-id K`` the
+process is rank K of N (``parallel/distributed.py``) and renders its share
+of the samples through ``parallel/mesh.py::render_sharded_regen_sum``;
+rank 0 writes the image.  ``--sharded`` without a coordinator starts one
+rank per visible card when ``--device cuda`` sees several, and renders on
+the one device otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 
@@ -28,6 +36,10 @@ def main(argv=None) -> int:
     parser.add_argument("--spp-per-batch", type=int, default=0)
     parser.add_argument("--out", default="output/output.png")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    parser.add_argument(
+        "--sharded", action="store_true",
+        help="shard spp over one rank per visible card (without --coordinator)",
+    )
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--trace-dir", default=None, help="write a torch.profiler trace here")
     parser.add_argument(
@@ -35,10 +47,22 @@ def main(argv=None) -> int:
         help="npz path: save the running radiance sum after every launch and resume "
         "an interrupted render with the same configuration",
     )
+    # multi-process execution: one process per rank
+    parser.add_argument("--coordinator", default=None, help="host:port of rank 0 (multi-process)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument(
+        "--backend", default=None,
+        help="torch.distributed backend, gloo or nccl (default: nccl on cards, gloo on the CPU)",
+    )
     args = parser.parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
+    from raytracer2022_tpu_torch.parallel.distributed import init_distributed, is_primary, rank_device
+    from raytracer2022_tpu_torch.parallel.mesh import make_device_mesh, render_sharded_regen_sum
+    from raytracer2022_tpu_torch.parallel.worker import launch_local
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.film import save_image, tonemap_u8
     from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum
@@ -51,6 +75,18 @@ def main(argv=None) -> int:
         parser.error("--device cuda: no CUDA device is available (pass --device cpu to run on the CPU)")
     if args.scene not in SCENES:
         parser.error(f"unknown scene {args.scene!r}; choose from {sorted(SCENES)}")
+    n_cards = torch.cuda.device_count() if device == torch.device("cuda") else 0
+    if args.sharded and not args.coordinator and n_cards > 1:
+        cmd = [sys.executable, "-m", "raytracer2022_tpu_torch.cli", *(sys.argv[1:] if argv is None else argv)]
+        print(launch_local(n_cards, cmd, timeout_s=None)[0], end="")
+        return 0
+
+    mesh = None
+    if args.coordinator:
+        device = rank_device(args.device, args.process_id)
+        init_distributed(args.coordinator, args.num_processes, args.process_id, backend=args.backend,
+                         device=device)
+        mesh = make_device_mesh(device.type)
 
     log = StageLogger(quiet=args.quiet)
     log.stage(1)
@@ -76,25 +112,34 @@ def main(argv=None) -> int:
     )
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    if mesh is not None:
+        name += f", rank {mesh.get_local_rank()} of {mesh.size()}"
     log.stage(2, name)
     t0 = time.perf_counter()
     with torch_trace(args.trace_dir):
-        total = render_sum(
-            bundle.scene, camera, cfg, progress=log.progress, checkpoint=args.checkpoint
-        )
+        if mesh is not None:
+            total, n_samples = render_sharded_regen_sum(bundle.scene, camera, cfg, mesh)
+        else:
+            total = render_sum(
+                bundle.scene, camera, cfg, progress=log.progress, checkpoint=args.checkpoint
+            )
+            n_samples = cfg.spp
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
 
-    log.stage(3, f"{args.width * args.height * cfg.spp / dt / 1e6:.2f} Mpaths/s on {name}")
+    log.stage(3, f"{args.width * args.height * n_samples / dt / 1e6:.2f} Mpaths/s on {name}")
     log.stage(4)
-    img = tonemap_u8(total, cfg.spp)
+    img = tonemap_u8(total, n_samples)
 
     log.stage(5)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    save_image(args.out, img)
-    if not args.quiet:
-        print(f'Output image as "{args.out}"')
+    if is_primary():  # one writer under multi-process
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        save_image(args.out, img)
+        if not args.quiet:
+            print(f'Output image as "{args.out}"')
+    if mesh is not None:
+        dist.destroy_process_group()
     log.done()
     return 0
 
