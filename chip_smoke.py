@@ -9,7 +9,9 @@ global memory) and on the stand-in mesh at the main path's width, then
 renders through the port's entry points: the stand-in mesh scene (whose K1
 calls also give S2, bounce rays; S1 is camera rays, S3 final_scene's
 sphere tree), holds K1's visit counts against the reference walk, times K1
-at S1-S3 against its bound, and renders a stand-in ``final_scene``
+at S1-S3 against its bound, holds K1 on the deepest tree the builder makes
+(phase ``deep``: 22 group levels, the kernel's stack) and renders it, runs
+``tools/perf.py`` on ``cornell_box``, and renders a stand-in ``final_scene``
 (media, image and noise textures, a 1000-sphere cluster tree) through
 ``render_sum_n``, ``cornell_box`` and every library scene that needs no
 file through ``cli.main``, the pixel-pool and quota schedules with exact
@@ -162,6 +164,53 @@ def final_scene_stand_in(builder, earth: np.ndarray) -> dict:
         time0=0.0,
         time1=1.0,
     )
+
+
+def final_scene_with_earth(builder) -> dict:
+    """:func:`final_scene_stand_in` with :func:`earth_stand_in`'s image:
+    the one-argument form that ``parallel/worker.py::build_scene`` calls."""
+    return final_scene_stand_in(builder, earth_stand_in())
+
+
+# nested triangle sets: NESTED_PER triangles at each scale 0.5^k around the
+# origin make a TRIANGLE tree about two group levels deeper per three scales
+NESTED_PER = 400
+NESTED_SCALES = 34  # with NESTED_SEED: depth 22, the kernel's MAX_DEPTH, in 305 groups
+NESTED_SEED = 3
+NESTED_TOO_DEEP = 35  # one scale more: depth 23, which both packages refuse
+NESTED_EXTENT = 1000.0  # half-width of the outermost scale
+
+
+def nested_triangles(builder, scales: int = NESTED_SCALES, seed: int = NESTED_SEED) -> dict:
+    """Add ``NESTED_PER`` lambertian triangles (edges up to 5% of the
+    scale) at each of ``scales`` nested scales, centres uniform in
+    [-s, s]^3 with s = NESTED_EXTENT * 0.5^k, to ``builder`` (either
+    package's).  Returns the camera kwargs of a view of the whole set; the
+    background is the sky."""
+    rng = np.random.default_rng(seed)
+    mat = builder.lambertian((0.7, 0.6, 0.5))
+    for k in range(scales):
+        s = NESTED_EXTENT * 0.5**k
+        c = rng.uniform(-s, s, (NESTED_PER, 3))
+        e1, e2 = rng.uniform(-0.05 * s, 0.05 * s, (2, NESTED_PER, 3))
+        for i in range(NESTED_PER):
+            builder.triangle(c[i], c[i] + e1[i], c[i] + e2[i], mat)
+    return dict(lookfrom=(0.0, 0.0, -4.0 * NESTED_EXTENT), lookat=(0.0, 0.0, 0.0), vup=(0.0, 1.0, 0.0),
+                vfov=40.0, aspect_ratio=1.0)
+
+
+def nested_rays(rng, n: int, scales: int = NESTED_SCALES):
+    """``n`` rays of :func:`nested_triangles`' set from points of its three
+    innermost scales outward, directions as long as the scale: every box
+    around the origin holds them, so they walk the deepest paths of its tree
+    (phase ``deep`` prints how deep the reference walk's stack gets), and
+    every triangle they meet is at least as large as their own scale, so
+    the hits are well conditioned in f32."""
+    s = NESTED_EXTENT * 0.5 ** rng.integers(scales - 3, scales, n)
+    o = rng.uniform(-1.0, 1.0, (3, n)) * s
+    d = rng.normal(size=(3, n)) * s
+    tm = rng.uniform(0, 1, n).astype(np.float32)
+    return o.astype(np.float32), d.astype(np.float32), tm
 
 
 def sphere_cluster_scene(builder, bvh8_kinds=None, *, device):
@@ -501,7 +550,7 @@ def k1_tree_memory(mode: str):
 
     keep = bvh8._tree_in_shared
     if mode == "global":
-        bvh8._tree_in_shared = lambda lib, ng: False
+        bvh8._tree_in_shared = lambda lib, ng, depth: False
     try:
         yield
     finally:
@@ -549,8 +598,8 @@ def raw_k1(lib, tree, kind: int, o, d, tm, t_init, rows: bool, tree_in_shared=No
     ray_ptrs = [x.data_ptr() for x in (o, d, tm, ti)]
     rows_ptr = None if out_rows is None else out_rows.data_ptr()
     ng = tree.entries.shape[0] // bvh8.FANOUT
-    shared = bvh8._tree_in_shared(lib, ng) if tree_in_shared is None else tree_in_shared
-    args = (kind, int(shared), T_MIN, n, ng, *tree_ptrs, *ray_ptrs, t.data_ptr(), best.data_ptr(),
+    shared = bvh8._tree_in_shared(lib, ng, tree.depth) if tree_in_shared is None else tree_in_shared
+    args = (kind, int(shared), T_MIN, n, ng, tree.depth, *tree_ptrs, *ray_ptrs, t.data_ptr(), best.data_ptr(),
             None if win is None else win.data_ptr(), rows_ptr, None, counter.data_ptr(), stream)
 
     def run():
@@ -559,6 +608,40 @@ def raw_k1(lib, tree, kind: int, o, d, tm, t_init, rows: bool, tree_in_shared=No
 
     run.buffers = (ti, t, best, out_rows, win, counter)  # alive while the kernel writes them
     return run
+
+
+def run_both(tree, kind: int, o, d, tm, t_init):
+    """K1 and its plain version on the same rays -> (plain, kernel), each
+    (t, best, rows) as numpy."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
+
+    got = traverse_bvh8(tree, kind, o, d, tm, T_MIN, t_init=t_init, return_rows=True)
+    ti = torch.full_like(tm, FAR) if t_init is None else torch.clamp(t_init, max=FAR)
+    ref = traverse_bvh8_plain(tree, kind, o, d, tm, T_MIN, ti)
+    torch.cuda.synchronize()
+    return [x.cpu().numpy() for x in ref], [x.cpu().numpy() for x in got]
+
+
+def shared_fits_groups(lib, depth: int) -> int:
+    """The most groups a tree of ``depth`` levels may have and still take
+    K1's shared-memory instantiation on the current device:
+    ``rt_bvh8_shared_fits`` of ``lib``, bisected (the stack, ``depth``
+    words a thread, and the group arrays share the opt-in limit)."""
+
+    def fits(ng: int) -> bool:
+        r = lib.rt_bvh8_shared_fits(ng, depth)
+        assert r >= 0, f"rt_bvh8_shared_fits failed: cudaError {-r}"
+        return r == 1
+
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
 
 
 def k1_at_shape(label: str, tree, kind: int, o, d, tm, t_init, rows: bool, smi: str) -> dict:
@@ -573,7 +656,7 @@ def k1_at_shape(label: str, tree, kind: int, o, d, tm, t_init, rows: bool, smi: 
     from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8
 
     n = o.shape[1]
-    out = {"rays": n}
+    out = {"rays": n, "depth": tree.depth, "shared_fits_groups": shared_fits_groups(bvh8._kernel_lib(), tree.depth)}
     for mode in ("shared", "global"):
         with k1_tree_memory(mode):
             visits = traverse_bvh8(tree, kind, o, d, tm, T_MIN, t_init=t_init, return_visits=True)[-1]
@@ -639,6 +722,37 @@ def mesh_rays(mesh, cam, rng):
     t_dense = candidate_t(mesh, o, d, tm, T_MIN, float("inf"),
                           prim_slice=slice(mesh.stats.n_in_bvh, mesh.n_prims)).amin(dim=0)
     return o, d, tm, t_dense
+
+
+def render_capturing(scene, cam, cfg, calls, launch_log=None):
+    """``render_sum_n`` with the inputs of K1 calls ``calls`` (counted from
+    0) kept -> (total, n, [[o, d, tm, t_init] of each kept call])."""
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.render.renderer import render_sum_n
+
+    traverse = bvh8.traverse_bvh8
+    captured = []
+    seen = [-1]
+
+    def capturing(*a, **kw):
+        seen[0] += 1
+        if seen[0] in calls:
+            captured.append([x.clone() for x in (*a[2:5], kw["t_init"])])
+        return traverse(*a, **kw)
+
+    bvh8.traverse_bvh8 = capturing
+    try:
+        total, n = render_sum_n(scene, cam, cfg, launch_log=launch_log)
+    finally:
+        bvh8.traverse_bvh8 = traverse
+    return total, n, captured
+
+
+def s2_rays(captured):
+    """S2: the first LANES rays of the kept calls, with their t_init."""
+    import torch
+
+    return [torch.cat(x, dim=-1)[..., :LANES].contiguous() for x in zip(*captured)]
 
 
 def print_ptxas(log: str) -> None:
@@ -935,6 +1049,101 @@ def phase_packet_policy(dev, smi, s3) -> dict:
           f"K1 {s3['ms']:.4f} ms (S3); hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal "
           f"{rep['id_match']:.4f} ({smi})", flush=True)
     return {"walk_ms": walk_ms, "k1_ms": s3["ms"]}
+
+
+DEEP_RAYS = 4096
+DEEP_WALK_SAMPLE = 128  # rays of the deep tree walked by the reference walk
+DEEP_SIZE, DEEP_SPP = 128, 8  # the deep mesh render
+
+
+def phase_deep(dev, smi) -> dict:
+    """The deepest TRIANGLE tree the builder makes here
+    (:func:`nested_triangles`: 22 group levels, the kernel's MAX_DEPTH): K1
+    against its plain version on ``DEEP_RAYS`` rays with three ``t_init``
+    modes in both instantiations, its visit counts and the stack depth
+    against the reference walk on a sample, and one render through
+    ``render_sum_n`` with K1's launches counted around it."""
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
+    from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    cam_kw = nested_triangles(b)
+    scene = b.finalize(device=dev)
+    tree = scene.bvh8[0]
+    depth = tree.depth
+    groups = tree.entries.shape[0] // bvh8.FANOUT
+    assert depth == bvh8.tree_depth(tree.entries.cpu().numpy()) == bvh8.MAX_DEPTH, \
+        f"the nested set's tree has {depth} levels, not {bvh8.MAX_DEPTH}"
+    rng = np.random.default_rng(2022)
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in nested_rays(rng, DEEP_RAYS))
+    finite = torch.as_tensor(rng.uniform(0.05, 2.0, DEEP_RAYS).astype(np.float32), device=dev)
+    err = 0.0
+    for label, t_init in (("no t_init", None), ("+inf t_init", torch.full_like(tm, float("inf"))),
+                          ("finite t_init", finite)):
+        for mode in ("shared", "global"):
+            with k1_tree_memory(mode):
+                ref, got = run_both(tree, TRIANGLE, o, d, tm, t_init)
+            assert bvh8.TREE_MEMORY == mode, f"K1 ran {bvh8.TREE_MEMORY}, not {mode}"
+            rep = check_parity(TRIANGLE, ref, got)
+            err = max(err, rep["max_abs_err"])
+            print(f"K1 parity deep tree {label:13s} {mode:6s}: hits {rep['hits']}, max|dt| "
+                  f"{rep['max_abs_err']:.3g}, ids equal {rep['id_match']:.4f}", flush=True)
+    visits = bvh8.traverse_bvh8(tree, TRIANGLE, o, d, tm, T_MIN, return_visits=True)[-1].cpu().numpy()
+    sample = np.arange(DEEP_WALK_SAMPLE)
+    far = np.full(DEEP_WALK_SAMPLE, bvh8.FAR, np.float32)
+    _, _, g_ref, l_ref, deepest = bvh8.walk_bvh8_reference(
+        tree, TRIANGLE, *(x[..., sample].cpu().numpy() for x in (o, d, tm)), T_MIN, far)
+    assert np.array_equal(visits[0, sample], g_ref) and np.array_equal(visits[1, sample], l_ref), \
+        "deep tree: K1's visit counts differ from the reference walk's"
+    print(f"K1 visits deep tree: {DEEP_WALK_SAMPLE} rays equal the reference walk's (groups mean "
+          f"{g_ref.mean():.1f} max {g_ref.max()}, deepest stack {deepest.max()} words of {bvh8.MAX_DEPTH})",
+          flush=True)
+
+    cam = make_camera(**cam_kw, device=dev)
+    cfg = RenderConfig(width=DEEP_SIZE, height=DEEP_SIZE, spp=DEEP_SPP, max_depth=DEPTH, background=None)
+    torch.cuda.synchronize()
+    bvh8.LAUNCHES = 0
+    t0 = time.perf_counter()
+    total, n = render_sum_n(scene, cam, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = bvh8.LAUNCHES
+    img = (total / n).cpu().numpy()
+    assert launches > 0, "the deep mesh render never launched K1"
+    assert np.isfinite(img).all() and img.mean() > 1e-3, "deep mesh render: non-finite or black"
+    tree_bytes = sum(x.numel() * x.element_size() for x in (tree.entries, tree.axorder, tree.boxes, tree.prows))
+    print(f"deep mesh: {scene.n_prims} triangles, tree depth {depth}, {groups} groups, group arrays "
+          f"{groups * 320} B in {bvh8.TREE_MEMORY} memory, tree {tree_bytes} B; render {DEEP_SIZE}x{DEEP_SIZE} x {n} "
+          f"spp, depth {DEPTH}: {dt:.2f} s, K1 launches {launches}, channel means "
+          f"{np.round(img.mean(axis=(1, 2)), 4).tolist()} ({smi})", flush=True)
+    return {"depth": depth, "groups": groups, "tree_memory": bvh8.TREE_MEMORY, "max_abs_err": err,
+            "launches": launches, "deepest_stack": int(deepest.max()), "render_s": dt}
+
+
+def phase_perf(smi) -> dict:
+    """``raytracer2022_tpu_torch.tools.perf`` on cornell_box at 128x128 x 16
+    spp: its JSON line, with finite positive times and rate."""
+    import contextlib
+    import io
+    import json
+
+    from raytracer2022_tpu_torch.tools import perf
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = perf.main(["cornell_box", "--size", "128x128", "--spp", "16"])
+    print(buf.getvalue(), end="", flush=True)
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert rc == 0 and rec["scene"] == "cornell_box", "perf: bad result"
+    for key in ("scene_build_s", "first_call_s", "steady_s", "Mpaths_per_s"):
+        assert np.isfinite(rec[key]) and rec[key] > 0, f"perf: {key} = {rec[key]}"
+    return rec
 
 
 DIFF_SIZE, DIFF_SPP_PAR, DIFF_SPP_SEQ = 256, 2, 32  # bench.py's fwd+bwd cell: 256x256 x 64 spp
@@ -1361,12 +1570,10 @@ def main(argv=None) -> int:
     from raytracer2022_tpu_torch import cli, native
     from raytracer2022_tpu_torch.cuda_build import build
     from raytracer2022_tpu_torch.ops import bvh8 as bvh8_mod
-    from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain
+    from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8, traverse_bvh8_plain
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
-    from raytracer2022_tpu_torch.render.renderer import (
-        MAX_SPP_SEQ, RenderConfig, render_batch_regen, render_sum_n, step_generator,
-    )
+    from raytracer2022_tpu_torch.render.renderer import MAX_SPP_SEQ, RenderConfig, render_batch_regen, step_generator
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
 
     dev = torch.device("cuda")
@@ -1390,13 +1597,6 @@ def main(argv=None) -> int:
 
     def to_dev(*xs):
         return [torch.as_tensor(x, device=dev) for x in xs]
-
-    def run_both(tree, kind, o, d, tm, t_init):
-        got = traverse_bvh8(tree, kind, o, d, tm, T_MIN, t_init=t_init, return_rows=True)
-        ti = torch.full_like(tm, FAR) if t_init is None else torch.clamp(t_init, max=FAR)
-        ref = traverse_bvh8_plain(tree, kind, o, d, tm, T_MIN, ti)
-        torch.cuda.synchronize()
-        return [x.cpu().numpy() for x in ref], [x.cpu().numpy() for x in got]
 
     # --- phase 3a: all five kinds on small generated trees, three t_init
     # modes, both instantiations of the kernel
@@ -1449,27 +1649,14 @@ def main(argv=None) -> int:
 
     # --- phase 4b: the main path, the stand-in mesh through render_sum_n;
     # the rays of two of its K1 calls become S2
-    captured = []
-
-    def capturing(*a, **kw):
-        capturing.calls += 1
-        if capturing.calls in S2_CALLS:
-            captured.append([x.clone() for x in (*a[2:5], kw["t_init"])])
-        return traverse_bvh8(*a, **kw)
-
-    capturing.calls = -1
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=args.spp, max_depth=DEPTH,
                        background=(0.0, 0.0, 0.0))
     launch_log: list = []
     torch.cuda.synchronize()
-    bvh8_mod.traverse_bvh8 = capturing
     bvh8_mod.LAUNCHES = 0  # count only the main path's launches from here
     t0 = time.perf_counter()
-    try:
-        total, n = render_sum_n(mesh, cam, cfg, launch_log=launch_log)
-        torch.cuda.synchronize()
-    finally:
-        bvh8_mod.traverse_bvh8 = traverse_bvh8
+    total, n, captured = render_capturing(mesh, cam, cfg, S2_CALLS, launch_log)
+    torch.cuda.synchronize()
     dt_mesh = time.perf_counter() - t0
     mesh_launches = bvh8_mod.LAUNCHES
     img = (total / n).cpu().numpy()
@@ -1487,7 +1674,7 @@ def main(argv=None) -> int:
     # --- phase 4c: K1 at the main path's shapes.  S1: the camera rays of
     # phase 3b; S2: the main path's bounce rays; S3: final_scene's 1000
     # spheres with a packet tree on bounce-like rays
-    o2, d2, tm2, ti2 = (torch.cat(x, dim=-1)[..., :LANES].contiguous() for x in zip(*captured))
+    o2, d2, tm2, ti2 = s2_rays(captured)
     for label, t_init in (("dense t_init", ti2), ("+inf t_init", torch.full_like(tm2, float("inf")))):
         ref, got = run_both(tree, TRIANGLE, o2, d2, tm2, t_init)
         reports["S2 " + label] = rep = check_parity(TRIANGLE, ref, got)
@@ -1505,6 +1692,17 @@ def main(argv=None) -> int:
         "S3": (s3_scene.bvh8[0], SPHERE, o3, d3, tm3, inf3, False),
     }
     k1 = {name: k1_at_shape(name, *shape, smi) for name, shape in shapes.items()}
+    fits_groups = {depth: shared_fits_groups(bvh8_mod._kernel_lib(), depth)
+                   for depth in sorted({s["depth"] for s in k1.values()} | {16, bvh8_mod.MAX_DEPTH})}
+    print(f"K1 shared-memory instantiation, most groups by tree depth: {fits_groups} ({smi})", flush=True)
+
+    # --- phase deep: the deepest tree the builder makes, and the perf tool
+    t_phase = time.perf_counter()
+    deep = phase_deep(dev, smi)
+    print(f"[phase deep: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    perf_rec = phase_perf(smi)
+    print(f"[phase perf: {time.perf_counter() - t_phase:.1f} s]", flush=True)
 
     # --- phase 5: cornell_box through the CLI
     before = bvh8_mod.LAUNCHES
@@ -1555,7 +1753,8 @@ def main(argv=None) -> int:
         "cluster_walk_ms": policy["walk_ms"], "k1_sphere_ms": policy["k1_ms"],
         "fwd_bwd_cornell": {k: diff["cornell"][k] for k in diff_keys},
         "fwd_bwd_mesh": {k: diff["mesh"][k] for k in diff_keys},
-        "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "card": smi,
+        "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "perf": perf_rec,
+        "deep_render_s": deep["render_s"], "card": smi,
     }}), flush=True)
 
     if args.profile:
@@ -1584,10 +1783,11 @@ def main(argv=None) -> int:
                              "mesh_fwd_bwd_step": diff["mesh"]["k1_per_step"],
                              "mesh_diff_forward": diff["mesh"]["k1_per_forward"],
                              "mesh_sharded_rank0": multi["world2_gloo"]["k1"][0],
-                             "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1]},
+                             "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1],
+                             "deep_mesh": deep["launches"]},
         "launches_per_mesh_render": mesh_launches,
         "launches_per_fwd_bwd_step": diff["mesh"]["k1_per_step"],
-        "max_abs_err": max(r["max_abs_err"] for r in reports.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in reports.values()] + [deep["max_abs_err"]]),
         "ms": s1["ms"],
         "plain_ms": p_ms,
         "bound_ms": s1["bound_ms"],
@@ -1596,6 +1796,8 @@ def main(argv=None) -> int:
         "bound_us": s1["bound_ms"] * 1e3,
         "share_of_bound": s1["share_of_bound"],
         "shapes": k1,
+        "shared_fits_groups": fits_groups,
+        "deep_tree": {k: deep[k] for k in ("depth", "groups", "tree_memory", "deepest_stack")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -19,9 +19,12 @@
 //     wrapper), so a long ray no longer idles 31 lanes;
 //   * a compact stack: one 32-bit word per visited group, the group id and
 //     the ordinal mask of its hit children (bit k = the child at ordinal k
-//     of the ray's octant order), popped nearest first.  Its depth is the
-//     tree's (MAX_DEPTH, checked by build_bvh8), in a per-thread column of
-//     shared memory;
+//     of the ray's octant order), popped nearest first.  It holds the
+//     tree's own depth (Params::depth, at most MAX_DEPTH = 22, the JAX
+//     package's bound, which build_bvh8 and SceneData.from_numpy check) in
+//     a per-thread column of shared memory: depth * 2 KB a block, so a
+//     shallow tree leaves the rest of the SM's shared memory and L1 to the
+//     group arrays and the leaf rows;
 //   * each lane visits its own groups (8 slab tests) until it reaches a
 //     leaf; then the warp tests the leaves of all its lanes together,
 //     LEAF_LANES<KIND> lanes to a leaf, each lane a row (or two) against
@@ -68,7 +71,10 @@ constexpr int RING = 4;
 
 constexpr int FANOUT = 8;
 constexpr int LEAF = 16;
-constexpr int MAX_DEPTH = 16;  // ops/bvh8.py MAX_DEPTH
+// the deepest tree: the JAX package's bound, (FANOUT - 1) * depth + 1 <= 160
+// (ops/bvh8.py MAX_STACK, MAX_DEPTH)
+constexpr int MAX_DEPTH = (160 - 1) / (FANOUT - 1);
+static_assert(MAX_DEPTH == 22, "ops/bvh8.py MAX_DEPTH");
 constexpr int SENT = 0x7FFFFFFF;
 constexpr int NONE = SENT;  // no node: never a group id (< 2^24) nor a leaf (< 0)
 constexpr int NCOL = 24;
@@ -77,7 +83,7 @@ constexpr float FAR = 1e30f;
 constexpr float NO_PID = 16777216.0f;  // 2^24, above every prim id
 constexpr int THREADS = 512;
 constexpr int REFILL = 16;  // idle lanes that make a warp fetch new rays
-constexpr int STACK_BYTES = MAX_DEPTH * THREADS * 4;
+constexpr int STACK_WORD_BYTES = THREADS * 4;  // one stack level of a block
 constexpr int GROUP_BYTES = FANOUT * (8 * 4 + 4 + 4);  // boxes, entries, axorder
 constexpr unsigned COPY_CHUNK = 32768;                // bytes per bulk copy
 constexpr unsigned FULL = 0xffffffffu;
@@ -258,6 +264,7 @@ struct Params {
   int* counter;  // rays handed out beyond the first grid's worth (zeroed)
   int n;
   int ng;
+  int depth;  // the tree's group levels: the stack's words per thread
   float t_min;
 };
 
@@ -435,7 +442,7 @@ __global__ void __launch_bounds__(THREADS, 1) bvh8_walk(const Params a) {
 
   Tree tr{a.entries, a.axorder, a.boxes};
   if constexpr (SH) {
-    float* sb = reinterpret_cast<float*>(smem + STACK_BYTES);
+    float* sb = reinterpret_cast<float*>(smem + a.depth * STACK_WORD_BYTES);
     int* se = reinterpret_cast<int*>(sb + (size_t)a.ng * FANOUT * 8);
     int* sa = se + a.ng * FANOUT;
     if (threadIdx.x == 0) mbar_init(&bar);
@@ -492,7 +499,7 @@ __global__ void __launch_bounds__(THREADS, 1) bvh8_walk(const Params a) {
         const unsigned m = visit_group<SH>(tr, node, r, idx, idy, idz, oct, a.t_min, t_best);
         ++n_groups;
         if (m != 0) {
-          if (sp == MAX_DEPTH) __trap();  // build_bvh8 refuses deeper trees
+          if (sp == a.depth) __trap();  // the tree's depth bounds the stack
           stack[sp * THREADS] = ((unsigned)node << 8) | m;
           ++sp;
         }
@@ -598,7 +605,7 @@ cudaError_t device_info(int* dev, const DeviceInfo** out) {
 template <int KIND, bool SH>
 cudaError_t launch(const Params& a, float* rows_out, cudaStream_t stream) {
   auto kern = bvh8_walk<KIND, SH>;
-  const int smem = STACK_BYTES + (SH ? a.ng * GROUP_BYTES : 0);
+  const int smem = a.depth * STACK_WORD_BYTES + (SH ? a.ng * GROUP_BYTES : 0);
   int dev = 0, sms = 0, per_sm = 0;
   {
     std::lock_guard<std::mutex> lock(g_mutex);
@@ -639,33 +646,36 @@ cudaError_t launch_kind(bool shared, const Params& a, float* rows_out, cudaStrea
 
 }  // namespace
 
-// 1 if a tree of ng groups fits the shared-memory instantiation on the
-// current device, 0 if not, -cudaError on a failed query.
-extern "C" int rt_bvh8_shared_fits(int ng) {
+// 1 if a tree of ng groups and depth group levels fits the shared-memory
+// instantiation on the current device, 0 if not, -cudaError on a failed
+// query.
+extern "C" int rt_bvh8_shared_fits(int ng, int depth) {
   std::lock_guard<std::mutex> lock(g_mutex);
   int dev = 0;
   const DeviceInfo* di = nullptr;
   const cudaError_t e = device_info(&dev, &di);
   if (e != cudaSuccess) return -(int)e;
-  const long need = (long)STACK_BYTES + (long)ng * GROUP_BYTES + (long)di->static_smem;
+  const long need = (long)depth * STACK_WORD_BYTES + (long)ng * GROUP_BYTES + (long)di->static_smem;
   return need <= di->optin ? 1 : 0;
 }
 
 // Launches the walk (and, when rows_out is given, the row gather) on
 // stream; returns cudaGetLastError() after the launches (0 on success), and
-// the wrapper raises on anything else.  rows_out needs win_out; visits may
-// be null; counter is one zeroed int.
+// the wrapper raises on anything else.  depth is the tree's group levels
+// (1 to MAX_DEPTH); rows_out needs win_out; visits may be null; counter is
+// one zeroed int.
 extern "C" int rt_bvh8_traverse(int kind, int tree_in_shared, float t_min, int n, int ng,
-                                const int* entries, const int* axorder, const float* boxes,
-                                const float* prows, const float* o, const float* d,
-                                const float* tm, const float* t_init, float* t_out,
-                                int* best_out, int* win_out, float* rows_out, int* visits,
-                                int* counter, void* stream_ptr) {
-  const Params a{entries, axorder, boxes, prows, o,       d,       tm,  t_init,
-                 t_out,   best_out, win_out, visits, counter, n, ng, t_min};
+                                int depth, const int* entries, const int* axorder,
+                                const float* boxes, const float* prows, const float* o,
+                                const float* d, const float* tm, const float* t_init,
+                                float* t_out, int* best_out, int* win_out, float* rows_out,
+                                int* visits, int* counter, void* stream_ptr) {
+  const Params a{entries,  axorder, boxes,  prows,   o, d,  tm,    t_init,
+                 t_out,    best_out, win_out, visits, counter, n, ng, depth, t_min};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool sh = tree_in_shared != 0;
   if (rows_out != nullptr && win_out == nullptr) return (int)cudaErrorInvalidValue;
+  if (depth < 1 || depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
   switch (kind) {
     case SPHERE:
       return (int)launch_kind<SPHERE>(sh, a, rows_out, stream);

@@ -2,8 +2,8 @@
 
 Counterpart of ``raytracer2022_tpu/ops/bvh8.py``.  The host build
 (:func:`build_bvh8`, :func:`_leaf_rows`) is the JAX package's code
-unchanged, except that it refuses a tree deeper than the kernel's stack
-(``MAX_DEPTH`` group levels): the 8-ary topology is collapsed from the
+unchanged, with the JAX package's depth bound stated as the kernel's
+stack (``MAX_DEPTH`` group levels): the 8-ary topology is collapsed from the
 host binned-SAH binary tree, every leaf holds 16 primitive rows of 24 f32
 columns (the full param row, then pid/mat/flip/kind), and each group
 stores a near-first child order per ray-sign octant.
@@ -38,7 +38,13 @@ from .vecmath import masked_sqrt
 
 LEAF = 16  # prims per leaf
 FANOUT = 8
-MAX_DEPTH = 16  # group levels the kernel's stack holds; must match csrc/bvh8.cu
+# The JAX package's walk keeps up to FANOUT - 1 net pushes per level on a
+# stack of MAX_STACK entries, so it takes (FANOUT - 1) * depth + 1 <= 160.
+# The kernel's compact stack holds one word per group level of the tree it
+# walks (Bvh8Tree.depth), up to MAX_DEPTH levels, the same 22, in
+# csrc/bvh8.cu.
+MAX_STACK = 160
+MAX_DEPTH = (MAX_STACK - 1) // (FANOUT - 1)
 MAX_GROUPS = 1 << 24  # a stack word holds the group id above an 8-bit child mask
 SENT = 0x7FFFFFFF  # empty-child tag, never pushed
 NONE = SENT  # the walk's "no node left"
@@ -99,6 +105,42 @@ def _leaf_rows(kind, params, mat_id, flip, pids, prim_rows):
     rows[:, COL_FLIP] = np.where(valid, flip[gids].astype(np.float32), 0.0)
     rows[:, COL_KIND] = float(kind)
     return rows
+
+
+def _check_size(depth: int, groups: int) -> None:
+    """The kernel's stack holds one word per group level, and a stack word
+    a group id below MAX_GROUPS."""
+    if depth > MAX_DEPTH or groups > MAX_GROUPS:
+        raise ValueError(
+            f"bvh8 tree of depth {depth} and {groups} groups exceeds the "
+            f"kernel's MAX_DEPTH={MAX_DEPTH} or MAX_GROUPS={MAX_GROUPS}"
+        )
+
+
+def tree_depth(entries) -> int:
+    """Group levels of a tree from its ``entries`` (i32[Ng*8], numpy): the
+    stack words the kernel needs.  Raises ValueError on a child id outside
+    the groups or on a cycle."""
+    e = np.asarray(entries).reshape(-1, FANOUT)
+    level = np.zeros(1, np.int64)
+    depth = seen = 0
+    while level.size:
+        depth += 1
+        seen += level.size  # a tree visits each group once
+        if seen > len(e) or (level >= len(e)).any():
+            raise ValueError("bvh8 entries are not a tree: a cycle, a shared group or a group outside")
+        kids = e[level].reshape(-1)
+        level = kids[(kids >= 0) & (kids != SENT)]
+    return depth
+
+
+def check_tree(entries) -> int:
+    """The depth of a tree another compiler built (``SceneData.from_numpy``
+    takes the JAX package's), refused as ``build_bvh8`` refuses its own
+    where the kernel cannot walk it."""
+    depth = tree_depth(entries)
+    _check_size(depth, np.asarray(entries).size // FANOUT)
+    return depth
 
 
 def build_bvh8(kind, params, mat_id, flip, pids, bmin, bmax, device="cpu") -> Bvh8Tree:
@@ -183,19 +225,14 @@ def build_bvh8(kind, params, mat_id, flip, pids, bmin, bmax, device="cpu") -> Bv
     finally:
         sys.setrecursionlimit(old)
 
-    # the kernel's stack holds one word per group level
-    if max_depth > MAX_DEPTH or len(groups_box) > MAX_GROUPS:
-        raise ValueError(
-            f"bvh8 tree of depth {max_depth} and {len(groups_box)} groups exceeds the "
-            f"kernel's MAX_DEPTH={MAX_DEPTH} or MAX_GROUPS={MAX_GROUPS}"
-        )
-
+    _check_size(max_depth, len(groups_box))
     rows = _leaf_rows(kind, params, mat_id, flip, pids, np.stack(prim_rows))
     return Bvh8Tree(
         entries=torch.as_tensor(np.concatenate(child_entry).astype(np.int32), device=device),
         boxes=torch.as_tensor(np.concatenate(groups_box, axis=0), device=device),
         prows=torch.as_tensor(rows, device=device),
         axorder=torch.as_tensor(np.concatenate(ax_order).astype(np.int32), device=device),
+        depth=max_depth,
     )
 
 
@@ -444,11 +481,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a ``csrc/bvh8.cu`` build on ``lib``."""
     fn = lib.rt_bvh8_traverse
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [
         ctypes.c_void_p
     ] * 15
     lib.rt_bvh8_shared_fits.restype = ctypes.c_int
-    lib.rt_bvh8_shared_fits.argtypes = [ctypes.c_int]
+    lib.rt_bvh8_shared_fits.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -459,11 +496,11 @@ def _kernel_lib():
     return declare(load("bvh8.cu"))
 
 
-def _tree_in_shared(lib, ng: int) -> bool:
-    """Whether a tree of ``ng`` groups fits the kernel's shared-memory
-    instantiation on the current device (the tests replace this to run
-    the global-memory one)."""
-    fits = lib.rt_bvh8_shared_fits(ng)
+def _tree_in_shared(lib, ng: int, depth: int) -> bool:
+    """Whether a tree of ``ng`` groups and ``depth`` levels (its stack)
+    fits the kernel's shared-memory instantiation on the current device
+    (the tests replace this to run the global-memory one)."""
+    fits = lib.rt_bvh8_shared_fits(ng, depth)
     if fits < 0:
         raise RuntimeError(f"bvh8 shared-memory query failed: cudaError {-fits}")
     return fits == 1
@@ -495,8 +532,8 @@ def _traverse_cuda(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_init, re
     _check(tree.axorder, "axorder", i32, (ng8,), dev, vectors=True)
     _check(tree.boxes, "boxes", f32, (ng8, 8), dev, vectors=True)
     _check(tree.prows, "prows", f32, (tree.prows.shape[0], NCOL), dev, vectors=True)
-    if ng8 % FANOUT or ng8 // FANOUT > MAX_GROUPS:
-        raise ValueError(f"traverse_bvh8: {ng8} group slots is not a tree the kernel takes")
+    if ng8 % FANOUT or ng8 // FANOUT > MAX_GROUPS or not 1 <= tree.depth <= MAX_DEPTH:
+        raise ValueError(f"traverse_bvh8: {ng8} group slots of depth {tree.depth} is not a tree the kernel takes")
     t = torch.empty((n,), dtype=f32, device=dev)
     best = torch.empty((n,), dtype=i32, device=dev)
     rows = torch.empty((NCOL, n), dtype=f32, device=dev) if return_rows else None
@@ -511,12 +548,12 @@ def _traverse_cuda(tree: Bvh8Tree, kind: int, o, d, tm, t_min: float, t_init, re
     global LAUNCHES, TREE_MEMORY
     lib = _kernel_lib()
     with torch.cuda.device(dev):  # the launch goes to the current device
-        shared = _tree_in_shared(lib, ng8 // FANOUT)
+        shared = _tree_in_shared(lib, ng8 // FANOUT, tree.depth)
         counter = torch.zeros((1,), dtype=i32, device=dev)
         LAUNCHES += 1
         TREE_MEMORY = "shared" if shared else "global"
         err = lib.rt_bvh8_traverse(
-            kind, int(shared), t_min, n, ng8 // FANOUT,
+            kind, int(shared), t_min, n, ng8 // FANOUT, tree.depth,
             tree.entries.data_ptr(), tree.axorder.data_ptr(),
             tree.boxes.data_ptr(), tree.prows.data_ptr(),
             o.data_ptr(), d.data_ptr(), tm.data_ptr(), t_init.data_ptr(),

@@ -22,7 +22,8 @@ K1's launch count to 0 and runs its task over the one-dimensional mesh:
   ``fit_regen`` renders with the regeneration integrator over
   ``regen_iters_estimate``'s trip count;
 - ``dryrun``: the four steps of ``__graft_entry__.py::dryrun_multichip``
-  (cornell_box, 16x16, ``spp = world``, depth 4) with their checks.
+  (cornell_box, 16x16, ``spp = world``, depth 4) with their checks;
+- ``scaling``: one rank of ``tools/scaling.py`` (:func:`scaling_share`).
 
 Rank ``K`` writes ``x.rankK.npz`` (:func:`rank_path`): what it computed,
 its K1 launches, and its wall seconds from the barrier to the end of the
@@ -44,7 +45,9 @@ import time
 import traceback
 from typing import Optional
 
-TASKS = ("scan", "regen", "fit", "fit_regen", "dryrun")
+TASKS = ("scan", "regen", "fit", "fit_regen", "dryrun", "scaling")
+SCALING_REPS = 3  # timed sharded renders of the scaling task, after one warm-up
+SCALING_PROBE = (2, 16, 50)  # its iteration probe: lanes per pixel, samples per lane, depth
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 LOG_TAIL = 4000  # characters of each rank's log in a launch failure
 
@@ -178,11 +181,43 @@ def dryrun_multichip(mesh, device) -> dict:
             "params_scan": _flat_params(scene3, cam3)}
 
 
-def _sync(device) -> None:
-    import torch
+def scaling_share(scene, cam, cfg, mesh, device) -> dict:
+    """One rank of ``tools/scaling.py``: after a warm-up, ``SCALING_REPS``
+    renders through :func:`.mesh.render_sharded_regen_sum` (render ``i``
+    with the seed ``i``), each timed from a barrier to after its
+    all_reduce; then this rank's regeneration iterations at
+    ``SCALING_PROBE``, drawn from ``step_generator(derive_seed(cfg.seed,
+    rank), 0)``, gathered from every rank in rank order."""
+    import dataclasses
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ..render.integrator import derive_seed, step_generator
+    from ..render.renderer import render_batch_regen
+    from ..utils.device import synchronize
+    from .mesh import render_sharded_regen_sum
+
+    rank, world, group = mesh.get_local_rank(), mesh.size(), mesh.get_group()
+    render_sharded_regen_sum(scene, cam, cfg, mesh)
+    seconds = []
+    for i in range(SCALING_REPS):
+        synchronize(device)
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        render_sharded_regen_sum(scene, cam, dataclasses.replace(cfg, seed=i), mesh)
+        synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    spp_par, spp_seq, depth = SCALING_PROBE
+    _, iters = render_batch_regen(
+        scene, cam, step_generator(derive_seed(cfg.seed, rank), 0, device), cfg.width, cfg.height, spp_par,
+        spp_seq, dataclasses.replace(cfg, max_depth=depth).trace_cfg(), return_iters=True,
+    )
+    mine = torch.tensor([sum(iters.values())], dtype=torch.int64, device=device)
+    every = [torch.zeros_like(mine) for _ in range(world)]
+    dist.all_gather(every, mine, group=group)
+    return {"sharded_seconds": np.array(seconds), "regen_iters": torch.cat(every).cpu().numpy()}
 
 
 def run_task(args, mesh, device) -> dict:
@@ -195,6 +230,7 @@ def run_task(args, mesh, device) -> dict:
 
     from ..ops import bvh8
     from ..render.renderer import RenderConfig, regen_iters_estimate
+    from ..utils.device import synchronize
     from .mesh import (
         fit_regen_split, fit_step_fn, render_regen_shard, render_sharded_regen_sum, render_sharded_sum,
     )
@@ -212,12 +248,14 @@ def run_task(args, mesh, device) -> dict:
         spp_par, spp_seq = fit_regen_split(args.spp // world)
         out["regen_iters"] = regen_iters_estimate(scene, cam, args.width, args.height, spp_par, spp_seq,
                                                   cfg.trace_cfg())
-    _sync(device)
+    synchronize(device)
     dist.barrier(group=mesh.get_group())
     bvh8.LAUNCHES = 0
     t0 = time.perf_counter()
     if args.task == "dryrun":
         out.update(dryrun_multichip(mesh, device))
+    elif args.task == "scaling":
+        out.update(scaling_share(scene, cam, cfg, mesh, device))
     elif args.task in ("scan", "regen"):
         if args.task == "scan":
             total, n = render_sharded_sum(scene, cam, cfg, mesh), cfg.spp
@@ -234,12 +272,12 @@ def run_task(args, mesh, device) -> dict:
         for i in range(args.steps):
             t_step = time.perf_counter()
             scene, cam, loss = step(scene, cam, target, i)
-            _sync(device)
+            synchronize(device)
             seconds.append(time.perf_counter() - t_step)
             losses.append(float(loss))
             params.append(_flat_params(scene, cam))
         out.update(loss=np.array(losses), params=np.stack(params), step_seconds=np.array(seconds))
-    _sync(device)
+    synchronize(device)
     out.update(seconds=time.perf_counter() - t0, k1_launches=bvh8.LAUNCHES, rank=rank, world=world,
                device=str(device), backend=dist.get_backend())
     return out

@@ -114,7 +114,10 @@ class ClusterTree:
 @dataclasses.dataclass(frozen=True)
 class Bvh8Tree:
     """Tensors of one 8-ary packet tree (ops/bvh8.py); its primitive kind is
-    ``SceneStats.trees[i][0]`` for the tree at index ``i``."""
+    ``SceneStats.trees[i][0]`` for the tree at index ``i``.  ``depth`` is
+    not in the JAX package's tree: the port sets it where a tree is made
+    (``build_bvh8``, ``SceneData.from_numpy``), and kernel K1 sizes its
+    stack by it."""
 
     entries: torch.Tensor  # i32[Ng*8] tagged: >=0 group id, <0 leaf -(ptr+1), SENT empty
     boxes: torch.Tensor  # f32[Ng*8, 8] cols 0-2 bmin, 3-5 bmax
@@ -122,6 +125,10 @@ class Bvh8Tree:
     # near-first child visit order per (group, ray-sign octant): 8 slot ids
     # packed 3 bits each, nearest at the LOW bits
     axorder: torch.Tensor  # i32[Ng*8] (group-major, octant minor)
+    depth: int  # group levels (ops/bvh8.py::tree_depth)
+
+
+BVH8_ARRAYS = ("entries", "boxes", "prows", "axorder")  # a Bvh8Tree's tensors, the JAX package's fields
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +203,8 @@ class SceneData:
         out["materials"] = _to_numpy(self.materials)
         out["textures"] = _to_numpy(self.textures)
         out["clusters"] = _to_numpy(self.clusters)
-        out["bvh8"] = _to_numpy(self.bvh8)
+        out["bvh8"] = [None if t is None else {name: _to_numpy(getattr(t, name)) for name in BVH8_ARRAYS}
+                       for t in self.bvh8]
         out["any_xform"] = self.any_xform
         out["any_medium"] = self.any_medium
         return out
@@ -211,8 +219,18 @@ class SceneData:
         ``clusters`` as a list of dicts and ``bvh8`` as a list of dicts or
         None.  ``stats`` is a :class:`SceneStats` or any object with the
         same fields (the JAX package's compiled scene hands over its own).
+        Each packet tree gets its depth from its ``entries`` and is refused
+        where the kernel cannot walk it, as ``build_bvh8`` refuses its own.
         """
+        from ..ops.bvh8 import check_tree
+
         device = resolve_device(device)
+
+        def bvh8(t: dict) -> Bvh8Tree:
+            depth = check_tree(t["entries"])
+            return Bvh8Tree(**{name: torch.tensor(np.asarray(t[name]), device=device) for name in BVH8_ARRAYS},
+                            depth=depth)
+
         if not isinstance(stats, SceneStats):
             stats = SceneStats(
                 **{f.name: getattr(stats, f.name) for f in dataclasses.fields(SceneStats)}
@@ -225,9 +243,7 @@ class SceneData:
             materials=_tensors(MaterialTable, arrays["materials"], device),
             textures=_tensors(TextureTable, arrays["textures"], device),
             clusters=tuple(_tensors(ClusterTree, c, device) for c in arrays["clusters"]),
-            bvh8=tuple(
-                None if t is None else _tensors(Bvh8Tree, t, device) for t in arrays["bvh8"]
-            ),
+            bvh8=tuple(None if t is None else bvh8(t) for t in arrays["bvh8"]),
             any_xform=bool(arrays["any_xform"]),
             any_medium=bool(arrays["any_medium"]),
             stats=stats,

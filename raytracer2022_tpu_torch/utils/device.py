@@ -21,3 +21,10 @@ def resolve_device(device) -> torch.device:
             "(pass device='cpu' to build on the CPU)"
         )
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for ``device``'s queued work: a timed region on the card ends
+    here (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -202,13 +202,123 @@ def _mesh_tree():
     return tb.finalize(device="cpu").bvh8[0]
 
 
-def test_build_refuses_a_tree_deeper_than_the_kernel_stack(monkeypatch):
-    """build_bvh8 checks the kernel's stack bound: one word per group level."""
-    depth = _tree_depth(_mesh_tree())
-    assert 2 <= depth <= bvh8.MAX_DEPTH
-    monkeypatch.setattr(bvh8, "MAX_DEPTH", depth - 1)
-    with pytest.raises(ValueError, match="MAX_DEPTH"):
-        _mesh_tree()
+def test_build_refuses_a_tree_deeper_than_the_kernel_stack():
+    """build_bvh8 checks the kernel's stack bound, one word per group
+    level: a tree one level past it (the nested set one scale deeper) is
+    refused, as the JAX package's stack bound refuses it."""
+    assert _tree_depth(_mesh_tree()) <= bvh8.MAX_DEPTH
+    jb, tb = JaxBuilder(), TorchBuilder()
+    chip_smoke.nested_triangles(jb, chip_smoke.NESTED_TOO_DEEP)
+    chip_smoke.nested_triangles(tb, chip_smoke.NESTED_TOO_DEEP)
+    with pytest.raises(ValueError, match=f"depth {bvh8.MAX_DEPTH + 1} .*MAX_DEPTH={bvh8.MAX_DEPTH}"):
+        tb.finalize(device="cpu")
+    with pytest.raises(AssertionError, match=f"tree depth {bvh8.MAX_DEPTH + 1}"):
+        jb.finalize()
+
+
+def test_depth_cap_matches_jax():
+    """MAX_DEPTH is the deepest tree the JAX package's stack bound,
+    (FANOUT - 1) * depth + 1 <= MAX_STACK, admits."""
+    from raytracer2022_tpu.ops import bvh8 as jax_bvh8
+
+    admitted = [d for d in range(1, 100) if (jax_bvh8.FANOUT - 1) * d + 1 <= jax_bvh8.MAX_STACK]
+    assert bvh8.MAX_DEPTH == max(admitted) == 22
+    assert bvh8.tree_depth(_mesh_tree().entries.numpy()) == _tree_depth(_mesh_tree())
+
+
+@pytest.fixture(scope="module")
+def deep_scenes():
+    """The nested triangle set at the cap (22 group levels) through both
+    compilers."""
+    jb, tb = JaxBuilder(), TorchBuilder()
+    chip_smoke.nested_triangles(jb)
+    chip_smoke.nested_triangles(tb)
+    return jb.finalize(), tb.finalize(device="cpu")
+
+
+def _closest(scene, rays):
+    from raytracer2022_tpu_torch.ops.intersect import closest_hit
+
+    h, _ = closest_hit(scene, *(torch.as_tensor(x) for x in rays), T_MIN, float("inf"))
+    return h.hit.numpy(), h.t.numpy(), h.prim.numpy()
+
+
+def test_deep_tree_compiles_equal_and_closest_hit_matches_jax(deep_scenes):
+    """A tree of MAX_DEPTH levels: the same arrays from both compilers, and
+    the port's closest_hit (its plain walk of the packet tree) finds JAX's
+    hits (its cluster walk on the CPU) on 256 rays that walk the deepest
+    paths."""
+    import jax
+
+    from raytracer2022_tpu.ops.intersect import closest_hit as jax_closest_hit
+
+    js, ts = deep_scenes
+    assert _tree_depth(ts.bvh8[0]) == bvh8.tree_depth(ts.bvh8[0].entries.numpy()) == bvh8.MAX_DEPTH
+    for name in ("entries", "boxes", "prows", "axorder"):
+        np.testing.assert_array_equal(getattr(ts.bvh8[0], name).numpy(), np.asarray(getattr(js.bvh8[0], name)))
+    rays = chip_smoke.nested_rays(np.random.default_rng(3), 256)
+    h_ref, _ = jax_closest_hit(js, *(jnp.asarray(x) for x in rays), T_MIN, jnp.inf, jax.random.PRNGKey(0))
+    hit, t, prim = _closest(ts, rays)
+    np.testing.assert_array_equal(hit, np.asarray(h_ref.hit))
+    assert hit.sum() > 50
+    np.testing.assert_allclose(t[hit], np.asarray(h_ref.t)[hit], rtol=2e-5, atol=2e-5)
+    assert (prim[hit] == np.asarray(h_ref.prim)[hit]).mean() >= chip_smoke.MIN_ID_MATCH
+
+
+def test_deep_jax_scene_carried_across_renders_in_the_port(deep_scenes):
+    """JAX's compiled deep scene through SceneData.from_numpy: the port
+    finds the same hits on it as on its own compile, and renders it."""
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
+    from raytracer2022_tpu_torch.scene.types import SceneData
+    from test_torch_scene import jax_scene_arrays
+
+    js, ts = deep_scenes
+    carried = SceneData.from_numpy(jax_scene_arrays(js), js.stats, "cpu")
+    rays = chip_smoke.nested_rays(np.random.default_rng(4), 128)
+    for a, b in zip(_closest(carried, rays), _closest(ts, rays)):
+        np.testing.assert_array_equal(a, b)
+    cam = make_camera(**chip_smoke.nested_triangles(TorchBuilder(), 1), device="cpu")
+    total, n = render_sum_n(carried, cam, RenderConfig(width=8, height=8, spp=2, max_depth=3, background=None))
+    img = (total / n).numpy()
+    assert img.shape == (3, 8, 8) and np.isfinite(img).all() and img.mean() > 1e-3
+
+
+@pytest.fixture(scope="module")
+def too_deep_tree():
+    """The nested set one scale past the cap, built with the check lifted:
+    a tree of MAX_DEPTH + 1 levels."""
+    tb = TorchBuilder()
+    chip_smoke.nested_triangles(tb, chip_smoke.NESTED_TOO_DEEP)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bvh8, "MAX_DEPTH", bvh8.MAX_DEPTH + 1)
+        scene = tb.finalize(device="cpu")
+    assert _tree_depth(scene.bvh8[0]) == bvh8.MAX_DEPTH + 1
+    return scene
+
+
+def test_from_numpy_refuses_a_tree_deeper_than_the_kernel_stack(too_deep_tree):
+    """A tree built elsewhere is checked as build_bvh8 checks its own, so
+    no tree the port accepts reaches the kernel's stack guard."""
+    from raytracer2022_tpu_torch.scene.types import SceneData
+
+    arrays = too_deep_tree.to_numpy()
+    with pytest.raises(ValueError, match=f"depth {bvh8.MAX_DEPTH + 1} "):
+        SceneData.from_numpy(arrays, too_deep_tree.stats, "cpu")
+    bad = dict(arrays, bvh8=[dict(arrays["bvh8"][0], entries=np.zeros_like(arrays["bvh8"][0]["entries"]))])
+    with pytest.raises(ValueError, match="not a tree"):
+        SceneData.from_numpy(bad, too_deep_tree.stats, "cpu")
+
+
+def test_plain_and_reference_walk_have_no_depth_limit(too_deep_tree):
+    """The plain version and the reference walk take a tree past the
+    kernel's cap and agree on it."""
+    rays = chip_smoke.nested_rays(np.random.default_rng(5), 64, chip_smoke.NESTED_TOO_DEEP)
+    t, best, groups, _, deepest = _walk(too_deep_tree.bvh8[0], TRIANGLE, rays)
+    plain = _port(too_deep_tree.bvh8[0], TRIANGLE, rays)
+    rep = chip_smoke.check_parity(TRIANGLE, (plain[0], plain[1], None), (t, best, None))
+    assert rep["hits"] > 10 and groups.max() > bvh8.MAX_DEPTH
+    assert deepest.max() <= bvh8.MAX_DEPTH + 1
 
 
 def test_visit_counts_need_the_kernel():

@@ -23,7 +23,7 @@ from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_p
 from raytracer2022_tpu_torch.ops.intersect import closest_hit
 from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-from raytracer2022_tpu_torch.scene.types import BOX, MEDIUM, TRIANGLE, Bvh8Tree
+from raytracer2022_tpu_torch.scene.types import BOX, BVH8_ARRAYS, MEDIUM, TRIANGLE, Bvh8Tree
 
 torch.set_num_threads(1)
 
@@ -42,12 +42,12 @@ def tree_memory(request, monkeypatch):
     """The kernel's instantiation: ``global`` takes the global-memory one
     even where the tree fits in shared memory."""
     if request.param == "global":
-        monkeypatch.setattr(bvh8, "_tree_in_shared", lambda lib, ng: False)
+        monkeypatch.setattr(bvh8, "_tree_in_shared", lambda lib, ng, depth: False)
     return request.param
 
 
 def _on(tree: Bvh8Tree, device) -> Bvh8Tree:
-    return Bvh8Tree(*(x.to(device) for x in (tree.entries, tree.boxes, tree.prows, tree.axorder)))
+    return dataclasses.replace(tree, **{name: getattr(tree, name).to(device) for name in BVH8_ARRAYS})
 
 
 def _both(tree, kind, o, d, tm, t_init, device, plain_device="cpu"):
@@ -123,6 +123,23 @@ def test_kernel_at_the_main_path_width(cuda_device, tree_memory):
     assert rep["hits"] > 10000
     assert (visits[0] >= 1).all()
     _assert_visits(scene.bvh8[0], TRIANGLE, o, d, tm, ti, visits, rng.choice(chip_smoke.LANES, 512, replace=False))
+
+
+@pytest.mark.cuda
+def test_kernel_on_the_deepest_tree(cuda_device, tree_memory):
+    """The nested triangle set's tree of MAX_DEPTH group levels, on rays
+    that walk its deepest paths: the kernel's stack holds every level."""
+    b = SceneBuilder()
+    chip_smoke.nested_triangles(b)
+    scene = b.finalize(device="cpu")
+    assert bvh8.tree_depth(scene.bvh8[0].entries.numpy()) == bvh8.MAX_DEPTH
+    rng = np.random.default_rng(9)
+    o, d, tm = (torch.as_tensor(x) for x in chip_smoke.nested_rays(rng, 4096))
+    ref, got, visits = _both(scene.bvh8[0], TRIANGLE, o, d, tm, None, cuda_device, plain_device=cuda_device)
+    assert bvh8.TREE_MEMORY == tree_memory
+    rep = chip_smoke.check_parity(TRIANGLE, ref, got)
+    assert rep["hits"] > 1000
+    _assert_visits(scene.bvh8[0], TRIANGLE, o, d, tm, None, visits, np.arange(0, 4096, 64))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,84 @@
+"""The port's measurement tools on the CPU: ``tools/perf.py`` and
+``tools/scaling.py`` (two gloo ranks), at tiny sizes.  Their numbers here
+time the plain versions on this host; the card's come from a run on the card."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from raytracer2022_tpu_torch.parallel.worker import SCALING_PROBE, build_scene
+from raytracer2022_tpu_torch.render.integrator import derive_seed, step_generator
+from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen
+from raytracer2022_tpu_torch.tools import perf, scaling
+
+torch.set_num_threads(1)
+
+PERF_KEYS = {"scene", "prims", "scene_build_s", "first_call_s", "steady_s", "Mpaths_per_s"}
+SCALING_KEYS = {"n_devices", "host_cores", "t_single_s", "t_sharded_s", "speedup_sharded_vs_single",
+                "parallel_efficiency", "per_device_regen_iters", "iters_mean", "iters_max",
+                "work_normalized_efficiency"}
+
+
+def _json_lines(out: str) -> list:
+    lines = out.strip().splitlines()
+    assert lines[0].startswith("cpu: "), "the device line comes first"
+    return [json.loads(line) for line in lines[1:]]
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_perf_on_the_cpu(capsys, scan):
+    argv = ["cornell_box", "random_scene", "--size", "16x16", "--spp", "4", "--depth", "4", "--device", "cpu"]
+    assert perf.main(argv + (["--scan"] if scan else [])) == 0
+    recs = _json_lines(capsys.readouterr().out)
+    assert [r["scene"] for r in recs] == ["cornell_box", "random_scene"]
+    for r in recs:
+        assert PERF_KEYS <= r.keys() and r["device"] == "cpu" and r["prims"] > 0
+        for key in PERF_KEYS - {"scene", "prims"}:
+            assert np.isfinite(r[key]) and r[key] > 0, (key, r[key])
+
+
+def test_scaling_on_two_gloo_ranks(capsys):
+    """Each rank's iteration count is the one a single process computes
+    with that rank's generator; the work-normalised efficiency is at most 1."""
+    size = 8
+    assert scaling.main(["2", "--device", "cpu", "--size", str(size)]) == 0
+    (rec,) = _json_lines(capsys.readouterr().out)
+    assert SCALING_KEYS <= rec.keys()
+    assert rec["n_devices"] == 2 and rec["backend"] == "gloo"
+    assert rec["parallel_efficiency_divisor"] == min(2, rec["host_cores"])
+    for key in ("t_single_s", "t_sharded_s", "speedup_sharded_vs_single", "parallel_efficiency"):
+        assert np.isfinite(rec[key]) and rec[key] > 0, (key, rec[key])
+
+    scene, cam, background = build_scene(scaling.SCENE, size, size, "cpu")
+    lanes, samples, depth = SCALING_PROBE
+    tcfg = RenderConfig(width=size, height=size, max_depth=depth, background=background).trace_cfg()
+    want = []
+    for rank in range(2):
+        _, iters = render_batch_regen(scene, cam, step_generator(derive_seed(0, rank), 0, "cpu"), size, size,
+                                      lanes, samples, tcfg, return_iters=True)
+        want.append(sum(iters.values()))
+    assert rec["per_device_regen_iters"] == want
+    assert rec["iters_max"] == max(want) and rec["iters_mean"] == sum(want) / 2
+    assert 0 < rec["work_normalized_efficiency"] <= 1
+
+
+def test_tools_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perf.main(["cornell_box"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scaling.main(["2"])
+
+
+def test_tools_import_neither_jax_nor_the_jax_package():
+    code = ("import sys; import raytracer2022_tpu_torch.tools.perf, raytracer2022_tpu_torch.tools.scaling; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'raytracer2022_tpu', 'tools')]; "
+            "assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
