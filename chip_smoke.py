@@ -14,7 +14,14 @@ at S1-S3 against its bound, holds K1 on the deepest tree the builder makes
 ``tools/perf.py`` on ``cornell_box``, and renders a stand-in ``final_scene``
 (media, image and noise textures, a 1000-sphere cluster tree) through
 ``render_sum_n``, ``cornell_box`` and every library scene that needs no
-file through ``cli.main``, the pixel-pool and quota schedules with exact
+file through ``cli.main``.  Phase ``assets`` writes stand-ins for the
+files the repository does not hold (``write_stand_in_assets``: JPEG
+textures by the port's encoder, an OBJ torus for the Shuttle), decodes
+them with the port's decoder, renders the JAX CLI's default invocation
+(``wwscene``, 640x360 x 100 spp, depth 50, K1 on the OBJ mesh's tree)
+through ``cli.main`` into a JPEG, holds it card against CPU, and renders
+``earth``, ``obj_uv_demo`` and ``final_scene`` from the files.  It runs
+the pixel-pool and quota schedules with exact
 per-pixel sample counts, the ray sort and the fixed-depth ``trace``, and
 times the cluster walk against K1 on one sphere tree.  The ``diff`` phase
 drives the differentiable path: K1 against the cluster walk under
@@ -117,6 +124,115 @@ def earth_stand_in(seed: int = 0, width: int = 1024, height: int = 512) -> np.nd
     return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
+PLANETS = {"Saturn.jpg": (1, (0.85, 0.75, 0.55)), "Jupiter.jpg": (2, (0.8, 0.6, 0.45)),
+           "Mars.jpg": (3, (0.75, 0.35, 0.2))}  # file -> (seed offset, base colour)
+SHUTTLE_RADII = (0.35, 0.15)  # the stand-in Shuttle's torus at model scale: about one unit across
+SHUTTLE_TILT_DEG = 35.0
+
+
+def planet_stand_in(seed: int, colour, width: int = 1024, height: int = 512) -> np.ndarray:
+    """A u8[height, width, 3] banded planet map: latitude bands of seeded
+    widths and shades around ``colour``, with mild noise."""
+    rng = np.random.default_rng(seed)
+    lat = np.linspace(0.0, 1.0, height)[:, None, None]
+    lon = np.linspace(0.0, 2.0 * math.pi, width)[None, :, None]
+    freqs, phases = rng.uniform(4.0, 24.0, 3), rng.uniform(0.0, 2.0 * math.pi, 3)
+    bands = sum(np.sin(2.0 * math.pi * f * lat + p + 0.15 * np.sin(lon + p)) for f, p in zip(freqs, phases))
+    img = np.asarray(colour) * (0.8 + 0.07 * bands) + rng.normal(0.0, 0.02, (height, width, 3))
+    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def shuttle_obj_text(nu: int = 96, nv: int = 68) -> str:
+    """OBJ text of a closed torus of ``2 * nu * nv`` triangles standing in
+    for ``obj/Shuttle.obj`` (13,079 triangles): ``nu * nv`` quads with ``vt``
+    and ``vn`` records, at model scale (about one unit across, tilted), so
+    that ``wwscene``'s zoom 13.5, rotate_y 56 and translate place it in the
+    camera's view.  With the defaults: 13,056 triangles."""
+    big, small = SHUTTLE_RADII
+    phi = 2.0 * math.pi * np.arange(nu) / nu
+    th = 2.0 * math.pi * np.arange(nv) / nv
+    ring = big + small * np.cos(th)[None, :]
+    a = math.radians(SHUTTLE_TILT_DEG)
+
+    def tilt(x, y, z):
+        return np.stack([x, y * math.cos(a) - z * math.sin(a), y * math.sin(a) + z * math.cos(a)], -1)
+
+    verts = tilt(ring * np.cos(phi)[:, None], np.broadcast_to(small * np.sin(th)[None, :], (nu, nv)),
+                 ring * np.sin(phi)[:, None]).reshape(-1, 3)
+    normals = tilt(np.cos(th)[None, :] * np.cos(phi)[:, None], np.broadcast_to(np.sin(th)[None, :], (nu, nv)),
+                   np.cos(th)[None, :] * np.sin(phi)[:, None]).reshape(-1, 3)
+    uvs = np.stack(np.meshgrid(np.arange(nu) / nu, np.arange(nv) / nv, indexing="ij"), -1).reshape(-1, 2)
+    lines = ["# stand-in for Shuttle.obj: a torus of quads", "o shuttle_stand_in", "g hull", "s 1",
+             "usemtl grey"]
+    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
+    lines += [f"vt {u:.9g} {v:.9g}" for u, v in uvs]
+    lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in normals]
+    for i in range(nu):
+        for j in range(nv):
+            quad = [i * nv + j, ((i + 1) % nu) * nv + j, ((i + 1) % nu) * nv + (j + 1) % nv, i * nv + (j + 1) % nv]
+            lines.append("f " + " ".join(f"{k + 1}/{k + 1}/{k + 1}" for k in quad))
+    return "\n".join(lines) + "\n"
+
+
+def write_stand_in_assets(directory: str, seed: int = 0, shuttle=(96, 68), encode=None) -> dict:
+    """Write the files that ``earth``, ``final_scene``, ``obj_uv_demo`` and
+    ``wwscene`` read, which the repository does not hold, as generated
+    stand-ins: ``earthmap.jpg`` (:func:`earth_stand_in`), ``Saturn.jpg``,
+    ``Jupiter.jpg`` and ``Mars.jpg`` (1024x512 each, :func:`planet_stand_in`)
+    and ``obj/Shuttle.obj`` (:func:`shuttle_obj_text` of ``shuttle = (nu, nv)``).
+    ``encode(path, u8[H, W, 3])`` writes a JPEG, by default the port's
+    ``write_jpeg`` at quality 100.  Returns ``{file name: image}``."""
+    import os
+
+    if encode is None:
+        from raytracer2022_tpu_torch.utils.imageio import write_jpeg as encode
+    images = {"earthmap.jpg": earth_stand_in(seed)}
+    for name, (offset, colour) in PLANETS.items():
+        images[name] = planet_stand_in(seed + offset, colour)
+    os.makedirs(os.path.join(directory, "obj"), exist_ok=True)
+    for name, img in images.items():
+        encode(os.path.join(directory, name), img)
+    with open(os.path.join(directory, "obj", "Shuttle.obj"), "w") as f:
+        f.write(shuttle_obj_text(*shuttle))
+    return images
+
+
+@contextlib.contextmanager
+def source_dir_env(path: str):
+    """``RT2022_SOURCE_DIR`` set to ``path`` inside the block, restored after."""
+    import os
+
+    old = os.environ.get("RT2022_SOURCE_DIR")
+    os.environ["RT2022_SOURCE_DIR"] = path
+    try:
+        yield path
+    finally:
+        if old is None:
+            del os.environ["RT2022_SOURCE_DIR"]
+        else:
+            os.environ["RT2022_SOURCE_DIR"] = old
+
+
+def mesh_view_share(bundle, device, width: int = 64, height: int = 36) -> float:
+    """Share of a ``width x height`` grid of camera rays (pixel centres) of a
+    library scene ``bundle`` whose closest hit is a triangle: > 0 shows that
+    ``wwscene``'s OBJ mesh is in the camera's view."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops.intersect import closest_hit
+    from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
+
+    cam = make_camera(**dict(bundle.camera_kwargs, aspect_ratio=width / height), device=device)
+    ys, xs = torch.meshgrid(torch.arange(height, device=device), torch.arange(width, device=device), indexing="ij")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    o, d, tm = get_rays(cam, (xs.reshape(-1).float() + 0.5) / width, (ys.reshape(-1).float() + 0.5) / height, gen)
+    with torch.no_grad():
+        hit, _ = closest_hit(bundle.scene, o, d, tm, 1e-3, float("inf"), gen, recompute_t=False)
+    on_mesh = hit.hit & (bundle.scene.kind[hit.prim] == TRIANGLE)
+    return float(on_mesh.float().mean())
+
+
 def final_scene_stand_in(builder, earth: np.ndarray) -> dict:
     """``scene/library.py::final_scene`` (book 2's final scene) call for
     call, with ``earth`` as the earth sphere's image in place of the file:
@@ -164,12 +280,6 @@ def final_scene_stand_in(builder, earth: np.ndarray) -> dict:
         time0=0.0,
         time1=1.0,
     )
-
-
-def final_scene_with_earth(builder) -> dict:
-    """:func:`final_scene_stand_in` with :func:`earth_stand_in`'s image:
-    the one-argument form that ``parallel/worker.py::build_scene`` calls."""
-    return final_scene_stand_in(builder, earth_stand_in())
 
 
 # nested triangle sets: NESTED_PER triangles at each scale 0.5^k around the
@@ -441,29 +551,6 @@ FINAL_SPP = 32
 PIXEL_SPP_SEQ = 512  # bench.py's pixel-pool launch: 256x256 x 4 lanes x 512
 DEPTH = 50
 LANES = 1 << 18  # the main path's launch width (RenderConfig.max_rays_per_batch)
-
-
-def _read_png(path: str) -> np.ndarray:
-    """Decode the filter-0, 8-bit RGB PNG that film.save_image writes."""
-    import struct
-    import zlib
-
-    with open(path, "rb") as f:
-        data = f.read()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
-    pos, idat, w, h = 8, b"", 0, 0
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos : pos + 4])
-        tag = data[pos + 4 : pos + 8]
-        body = data[pos + 8 : pos + 8 + length]
-        if tag == b"IHDR":
-            w, h = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + length
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    assert (raw[:, 0] == 0).all(), "unexpected PNG row filter"
-    return raw[:, 1:].reshape(h, w, 3)
 
 
 def _time_cuda(fn, reps: int) -> float:
@@ -798,34 +885,42 @@ def _rel(a, b) -> np.ndarray:
     return np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
 
 
-def card_vs_cpu(dev, label: str, build, cfg) -> None:
+def card_vs_cpu(dev, label: str, build, cfg, card_seeds=(0,)) -> list:
     """Hold the card's channel means against the CPU's (plain versions) on
     one scene: ``CPU_SEEDS`` CPU renders at ``cfg`` give a mean and a
-    seed-to-seed standard deviation; the card renders once at about
-    ``CARD_FACTOR`` times the samples.  Fails unless every channel agrees
-    within ``MAX_Z`` standard errors of the difference and within
-    ``MAX_REL``.  ``build(device)`` returns ``(scene, camera)``."""
+    seed-to-seed standard deviation; the card renders once for each of
+    ``card_seeds`` at about ``CARD_FACTOR`` times the samples.  Fails unless
+    every channel of every card render agrees within ``MAX_Z`` standard
+    errors of the difference and within ``MAX_REL``.  ``build(device)``
+    returns ``(scene, camera)``.  Returns each card render's z."""
     import dataclasses
 
     from raytracer2022_tpu_torch.render.renderer import render_sum_n
 
     scene, cam = build(dev)
-    total, n_card = render_sum_n(scene, cam, dataclasses.replace(cfg, spp=cfg.spp * CARD_FACTOR))
-    m_card = _means(total, n_card)
+    m_cards = []
+    for seed in card_seeds:
+        total, n_card = render_sum_n(scene, cam, dataclasses.replace(cfg, spp=cfg.spp * CARD_FACTOR, seed=seed))
+        m_cards.append(_means(total, n_card))
     scene, cam = build("cpu")
     runs = []
     for s in range(CPU_SEEDS):
         total, n_cpu = render_sum_n(scene, cam, dataclasses.replace(cfg, seed=100 + s))
         runs.append(_means(total, n_cpu))
     m_cpu, sd = np.mean(runs, axis=0), np.std(runs, axis=0, ddof=1)
-    z = (m_card - m_cpu) / np.maximum(sd * np.sqrt(1.0 / CPU_SEEDS + n_cpu / n_card), 1e-12)
-    rel = _rel(m_card, m_cpu)
-    print(f"{label} {cfg.width}x{cfg.height}: card x {n_card} spp vs CPU {CPU_SEEDS} seeds x {n_cpu} spp, "
-          f"channel means {m_card.round(4).tolist()} vs {m_cpu.round(4).tolist()} (rel {rel.round(4).tolist()}, "
-          f"z {z.round(2).tolist()}; CPU seed-to-seed sd {(sd / m_cpu).round(4).tolist()} rel; bounds "
-          f"|z| < {MAX_Z}, rel < {MAX_REL})", flush=True)
-    assert np.isfinite(m_card).all(), f"{label}: non-finite card render"
-    assert (np.abs(z) < MAX_Z).all() and (rel < MAX_REL).all(), f"{label}: card and CPU disagree"
+    zs = []
+    for seed, m_card in zip(card_seeds, m_cards):
+        z = (m_card - m_cpu) / np.maximum(sd * np.sqrt(1.0 / CPU_SEEDS + n_cpu / n_card), 1e-12)
+        rel = _rel(m_card, m_cpu)
+        seed_note = f" seed {seed}" if len(card_seeds) > 1 else ""
+        print(f"{label} {cfg.width}x{cfg.height}: card{seed_note} x {n_card} spp vs CPU {CPU_SEEDS} seeds x {n_cpu} "
+              f"spp, channel means {m_card.round(4).tolist()} vs {m_cpu.round(4).tolist()} (rel "
+              f"{rel.round(4).tolist()}, z {z.round(2).tolist()}; CPU seed-to-seed sd {(sd / m_cpu).round(4).tolist()} "
+              f"rel; bounds |z| < {MAX_Z}, rel < {MAX_REL})", flush=True)
+        assert np.isfinite(m_card).all(), f"{label}: non-finite card render"
+        assert (np.abs(z) < MAX_Z).all() and (rel < MAX_REL).all(), f"{label}: card and CPU disagree"
+        zs.append(z.tolist())
+    return zs
 
 
 def phase_final_scene(dev, smi) -> dict:
@@ -888,6 +983,7 @@ def phase_library(dev, smi) -> dict:
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.renderer import RenderConfig
     from raytracer2022_tpu_torch.scene.library import SCENES
+    from raytracer2022_tpu_torch.utils.imageio import read_png
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -898,7 +994,7 @@ def phase_library(dev, smi) -> dict:
                            "--spp", str(SMALL_SPP), "--out", path, "--quiet"])
             dt = time.perf_counter() - t0
             assert rc == 0, f"cli {name} returned {rc}"
-            png = _read_png(path)
+            png = read_png(path)
             assert png.shape == (SMALL, SMALL, 3) and png.mean() > 1.0, f"cli {name}: bad image"
             out[name] = dt
             print(f"cli {name} {SMALL}x{SMALL} x {SMALL_SPP} spp: {dt:.2f} s wall, png mean "
@@ -913,6 +1009,143 @@ def phase_library(dev, smi) -> dict:
         card_vs_cpu(dev, name, build, RenderConfig(width=SMALL, height=SMALL, spp=SMALL_SPP, max_depth=DEPTH,
                                                    background=background))
     return out
+
+
+# phase assets: the JAX CLI's default invocation, wwscene from the stand-in files
+WW_WIDTH, WW_HEIGHT, WW_SPP = 640, 360, 100
+WW_CHECK = (64, 36, 8)  # card-vs-CPU check of wwscene: width, height, spp ...
+WW_CHECK_CARD_SEEDS = (0, 1)  # ... with two card renders, each held to the bound
+WW_CHECK_SHUTTLE = (24, 12)  # ... with a 576-triangle Shuttle, which the CPU's plain version walks by brute force
+FROM_FILES_SMALL = ("earth", "obj_uv_demo", "final_scene")  # rendered from the files at SMALL x SMALL
+
+
+def _cli_capture(argv) -> tuple:
+    """Run cli.main, echo its output, return (seconds, its Mpaths/s)."""
+    import io
+    import re
+    import time
+
+    from raytracer2022_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    dt = time.perf_counter() - t0
+    print(buf.getvalue(), end="", flush=True)
+    assert rc == 0, f"cli {argv} returned {rc}"
+    rate = re.findall(r"([0-9.]+) Mpaths/s", buf.getvalue())
+    assert rate, "the CLI printed no rate"
+    return dt, float(rate[-1])
+
+
+def phase_assets(dev, smi) -> dict:
+    """The JAX CLI's default scene from asset files: the stand-in files
+    written by the port's JPEG encoder and read back by its decoder, then
+    ``wwscene`` at 640x360 x 100 spp, depth 50, through ``cli.main`` into a
+    JPEG (K1 on the OBJ mesh's TRIANGLE tree), its card-vs-CPU check, and
+    ``earth``, ``obj_uv_demo`` and ``final_scene`` from the files."""
+    import os
+    import tempfile
+    import time
+
+    from raytracer2022_tpu_torch import cli
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig
+    from raytracer2022_tpu_torch.scene.library import SCENES
+    from raytracer2022_tpu_torch.utils.device import synchronize
+    from raytracer2022_tpu_torch.utils.imageio import read_jpeg
+
+    host = f"host: {os.cpu_count()} cores"
+    with tempfile.TemporaryDirectory() as tmp, source_dir_env(os.path.join(tmp, "source")) as src:
+        t0 = time.perf_counter()
+        images = write_stand_in_assets(src)
+        print(f"assets: wrote {', '.join(images)} and obj/Shuttle.obj with the port's encoder in "
+              f"{time.perf_counter() - t0:.2f} s ({host})", flush=True)
+        decode_s = {}
+        for name, img in images.items():
+            path = os.path.join(src, name)
+            t0 = time.perf_counter()
+            back = read_jpeg(path)
+            decode_s[name] = time.perf_counter() - t0
+            assert back.shape == img.shape, f"{name}: decoded {back.shape}, wrote {img.shape}"
+            err = np.abs(back.astype(np.int64) - img)
+            print(f"assets: {name} {img.shape[1]}x{img.shape[0]}, {os.path.getsize(path)} bytes: decode "
+                  f"{decode_s[name]:.3f} s ({host}), round trip mean abs err {err.mean():.3f}, max {err.max()}",
+                  flush=True)
+            assert err.mean() < 16.0, f"{name}: the round trip lost the image"
+
+        t0 = time.perf_counter()
+        bundle = SCENES["wwscene"](device=dev)
+        synchronize(dev)
+        build_s = time.perf_counter() - t0
+        (tree,) = [t for t in bundle.scene.bvh8 if t is not None]
+        groups, depth = tree.entries.shape[0] // 8, tree.depth
+        share = mesh_view_share(bundle, dev)
+        print(f"wwscene: {bundle.scene.n_prims} prims, trees {bundle.scene.stats.trees}, mesh tree {groups} groups, "
+              f"depth {depth}; {share:.4f} of 64x36 camera rays hit the mesh; scene build from the files (the three "
+              f"planet JPEG decodes, the OBJ import, the BVHs, the upload), as the CLI run below repeats it: {build_s} s "
+              f"({host})", flush=True)
+        assert share > 0, "the stand-in Shuttle is not in the camera's view"
+
+        out = os.path.join(tmp, "output.jpg")
+        synchronize(dev)
+        bvh8.LAUNCHES = 0  # count only this render's launches
+        dt, mpaths = _cli_capture(["--scene", "wwscene", "--width", str(WW_WIDTH), "--height", str(WW_HEIGHT),
+                                   "--spp", str(WW_SPP), "--max-depth", str(DEPTH), "--out", out, "--device", str(dev)])
+        launches, memory = bvh8.LAUNCHES, bvh8.TREE_MEMORY
+        img = read_jpeg(out)
+        assert launches > 0 or dev.type != "cuda", "the wwscene render never launched K1"
+        assert img.shape == (WW_HEIGHT, WW_WIDTH, 3), f"output.jpg is {img.shape}"
+        assert img.std() > 1.0 and img.max() > 64, "output.jpg is blank"
+        print(f"cli wwscene {WW_WIDTH}x{WW_HEIGHT} x {WW_SPP} spp, depth {DEPTH}: {dt} s wall (scene build from the "
+              f"files and JPEG write included), {WW_WIDTH * WW_HEIGHT * WW_SPP / dt / 1e6} Mpaths/s over the wall time, "
+              f"{mpaths} Mpaths/s of the render alone (the CLI's, 2 decimals), K1 launches "
+              f"{launches}, {memory} instantiation, output.jpg channel means "
+              f"{img.reshape(-1, 3).mean(axis=0).round(3).tolist()} ({smi})", flush=True)
+
+        # K1 against its plain version on wwscene's own rays: the first two
+        # K1 calls (camera rays, then mostly bounce rays) of a small render
+        # with the full-size Shuttle
+        w, h, n = WW_CHECK
+        cfg = RenderConfig(width=w, height=h, spp=n, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+        cam = make_camera(**dict(bundle.camera_kwargs, aspect_ratio=w / h), device=dev)
+        _, _, captured = render_capturing(bundle.scene, cam, cfg, (0, 1))
+        for call, (o, d, tm, t_init) in enumerate(captured):
+            rep = check_parity(TRIANGLE, *run_both(tree, TRIANGLE, o, d, tm, t_init))
+            print(f"K1 parity wwscene K1 call {call} of a {w}x{h} x {n} spp render ({tm.shape[0]} rays): hits "
+                  f"{rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal {rep['id_match']:.5f}", flush=True)
+
+        # the card-vs-CPU check reads the same JPEGs and a smaller Shuttle
+        check_dir = os.path.join(tmp, "check")
+        os.makedirs(os.path.join(check_dir, "obj"))
+        for name in images:
+            os.symlink(os.path.join(src, name), os.path.join(check_dir, name))
+        with open(os.path.join(check_dir, "obj", "Shuttle.obj"), "w") as f:
+            f.write(shuttle_obj_text(*WW_CHECK_SHUTTLE))
+
+        def build(device):
+            b = SCENES["wwscene"](source_dir=check_dir, device=device)
+            return b.scene, make_camera(**dict(b.camera_kwargs, aspect_ratio=WW_CHECK[0] / WW_CHECK[1]),
+                                        device=device)
+
+        ww_z = card_vs_cpu(dev, "wwscene", build, cfg, card_seeds=WW_CHECK_CARD_SEEDS)
+        small = {}
+        for name in FROM_FILES_SMALL:
+            path = os.path.join(tmp, f"{name}.jpg")
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", name, "--width", str(SMALL), "--height", str(SMALL), "--spp", str(SMALL_SPP),
+                           "--out", path, "--quiet", "--device", str(dev)])
+            small[name] = time.perf_counter() - t0
+            got = read_jpeg(path)
+            assert rc == 0 and got.shape == (SMALL, SMALL, 3) and got.mean() > 1.0, f"cli {name}: bad image"
+            print(f"cli {name} from the files {SMALL}x{SMALL} x {SMALL_SPP} spp: {small[name]:.2f} s wall, jpg mean "
+                  f"{got.mean():.2f}", flush=True)
+    return {"seconds": dt, "mpaths": mpaths, "wall_mpaths": WW_WIDTH * WW_HEIGHT * WW_SPP / dt / 1e6, "spp": WW_SPP,
+            "launches": launches, "groups": groups, "depth": depth, "tree_memory": memory, "decode_s": decode_s,
+            "build_s": build_s, "check_z": ww_z,
+            "mesh_share": share, "small_s": small}
 
 
 def _dome(builder, mirrors: bool = True):
@@ -1478,6 +1711,7 @@ def phase_multi_cards(smi, mesh_means=None) -> dict:
     import torch
 
     from raytracer2022_tpu_torch import cli
+    from raytracer2022_tpu_torch.utils.imageio import read_png
 
     n_cards = torch.cuda.device_count()
     assert n_cards >= 2, f"phase_multi_cards needs two cards, {n_cards} visible"
@@ -1498,7 +1732,7 @@ def phase_multi_cards(smi, mesh_means=None) -> dict:
         rc = cli.main(["--scene", "cornell_box", "--width", str(WIDTH), "--height", str(HEIGHT), "--spp", str(SPP),
                        "--sharded", "--out", path, "--quiet"])
         dt = time.perf_counter() - t0
-        png = _read_png(path)
+        png = read_png(path)
         assert rc == 0 and png.shape == (HEIGHT, WIDTH, 3) and png.mean() > 1.0, "cli --sharded: bad image"
         out["cli_sharded"] = {"ranks": n_cards, "seconds": dt, "png_mean": float(png.mean())}
         print(f"multi cli --sharded cornell_box {WIDTH}x{HEIGHT} x {SPP} spp: {n_cards} ranks, one a card, "
@@ -1575,6 +1809,7 @@ def main(argv=None) -> int:
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
     from raytracer2022_tpu_torch.render.renderer import MAX_SPP_SEQ, RenderConfig, render_batch_regen, step_generator
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+    from raytracer2022_tpu_torch.utils.imageio import read_png
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1586,8 +1821,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print(f"host BVH builder: {'native SAH (native/librt_native.so)' if native.available() else 'NumPy fallback'}",
-          flush=True)
+    print("host runtime: " + (f"native SAH builder and C++ OBJ parser ({os.path.relpath(native.LIBRARY_PATH)})"
+                              if native.available() else "NumPy builder and Python OBJ parser (no g++)"), flush=True)
 
     # --- phase 2: build K1
     t0 = time.perf_counter()
@@ -1713,7 +1948,7 @@ def main(argv=None) -> int:
                        "--spp", str(args.spp), "--out", out, "--quiet"])
         dt_cli = time.perf_counter() - t0
         assert rc == 0, f"cli returned {rc}"
-        png = _read_png(out)
+        png = read_png(out)
     assert bvh8_mod.LAUNCHES == before, "cornell_box has no tree, yet K1 was launched"
     assert png.shape == (HEIGHT, WIDTH, 3), png.shape
     assert png.mean() > 1.0, "cornell render is black"
@@ -1729,6 +1964,9 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     phase_library(dev, smi)
     print(f"[phase library: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    assets = phase_assets(dev, smi)
+    print(f"[phase assets: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
     sched = phase_schedules(dev, smi)
     print(f"[phase schedules: {time.perf_counter() - t_phase:.1f} s]", flush=True)
@@ -1754,7 +1992,9 @@ def main(argv=None) -> int:
         "fwd_bwd_cornell": {k: diff["cornell"][k] for k in diff_keys},
         "fwd_bwd_mesh": {k: diff["mesh"][k] for k in diff_keys},
         "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "perf": perf_rec,
-        "deep_render_s": deep["render_s"], "card": smi,
+        "deep_render_s": deep["render_s"],
+        "wwscene": {k: assets[k] for k in ("seconds", "mpaths", "wall_mpaths", "spp", "launches", "decode_s", "small_s")},
+        "card": smi,
     }}), flush=True)
 
     if args.profile:
@@ -1784,7 +2024,7 @@ def main(argv=None) -> int:
                              "mesh_diff_forward": diff["mesh"]["k1_per_forward"],
                              "mesh_sharded_rank0": multi["world2_gloo"]["k1"][0],
                              "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1],
-                             "deep_mesh": deep["launches"]},
+                             "deep_mesh": deep["launches"], "wwscene": assets["launches"]},
         "launches_per_mesh_render": mesh_launches,
         "launches_per_fwd_bwd_step": diff["mesh"]["k1_per_step"],
         "max_abs_err": max([r["max_abs_err"] for r in reports.values()] + [deep["max_abs_err"]]),
@@ -1798,6 +2038,7 @@ def main(argv=None) -> int:
         "shapes": k1,
         "shared_fits_groups": fits_groups,
         "deep_tree": {k: deep[k] for k in ("depth", "groups", "tree_memory", "deepest_stack")},
+        "wwscene_render": {k: assets[k] for k in ("launches", "groups", "depth", "tree_memory", "spp")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,7 +4,10 @@ Counterpart of ``raytracer2022_tpu/cli.py`` (the reference's main
 program, raytracer/src/main.rs:28-231).  Renders on ``--device`` (default
 ``cuda``; a missing GPU is an error, never a silent move to the CPU).
 
-Example::
+With no arguments it renders the JAX CLI's default: ``wwscene`` at
+640x360 x 100 spp, depth 50, into ``output/output.jpg``, reading the
+scene's images and OBJ mesh from ``RT2022_SOURCE_DIR`` (a missing file is
+an error that names it).  Example::
 
     python -m raytracer2022_tpu_torch.cli --scene cornell_box --width 600 \\
         --height 600 --spp 64 --out output/cornell.png
@@ -27,14 +30,14 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Path tracer, PyTorch/CUDA port")
-    parser.add_argument("--scene", default="cornell_box", help="scene name (scene.library.SCENES)")
+    parser.add_argument("--scene", default="wwscene", help="scene name (scene.library.SCENES)")
     parser.add_argument("--width", type=int, default=640)
     parser.add_argument("--height", type=int, default=360)
     parser.add_argument("--spp", type=int, default=100)
     parser.add_argument("--max-depth", type=int, default=50)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--spp-per-batch", type=int, default=0)
-    parser.add_argument("--out", default="output/output.png")
+    parser.add_argument("--out", default="output/output.jpg")
     parser.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     parser.add_argument(
         "--sharded", action="store_true",

@@ -1,51 +1,83 @@
-"""ctypes bindings for the C++ host runtime (native/rt_native.cpp).
+"""ctypes bindings for the port's C++ host runtime (csrc/rt_native.cpp).
 
-The same ``native/librt_native.so`` the JAX package loads (its
-``native.py``): the OBJ parser and the binned-SAH BVH builder.  Nothing
-here is copied from the C++; when the library cannot be loaded or built,
-every caller falls back to its NumPy path (set ``RT2022_NO_NATIVE=1`` to
-force that).
+The OBJ parser and the binned-SAH BVH builder, the port's own copy of the
+JAX package's native runtime.  The source is compiled with ``g++`` at first
+use into ``build/native/rt_native-<hash>.so`` at the repository root, on
+the host that runs it (``-march=native``); the hash covers the source, the
+flags and the host's CPU (a library built for another CPU is never
+loaded), and the library is renamed into place atomically, so concurrent
+test workers never load a torn file.  Where ``g++`` is missing, every
+caller takes its NumPy path, as the JAX package does (set
+``RT2022_NO_NATIVE=1`` to force that).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
+import shutil
 import subprocess
 import threading
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "librt_native.so")
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "rt_native.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "native")
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall")  # native/Makefile's
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+LIBRARY_PATH: str | None = None  # the library that loaded, for reports and tests
+
+
+def _cpu_identity() -> bytes:
+    """What ``-march=native`` compiles for: the CPU's model and flags."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return platform.machine().encode() + platform.processor().encode()
+    keep = [ln for ln in lines if ln.startswith((b"model name", b"flags", b"Features", b"CPU part"))]
+    return b"\n".join(sorted(set(keep)))
+
+
+def build() -> str | None:
+    """Compile the runtime unless a build of this exact source exists;
+    its path, or None where there is no ``g++``."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        return None
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode() + _cpu_identity()).hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"rt_native-{digest}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {SOURCE}:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so_path)  # atomic: a concurrent loader never sees a torn file
+    return so_path
 
 
 def _load():
-    global _lib, _tried
+    global _lib, _tried, LIBRARY_PATH
     with _lock:
         if _tried:
             return _lib
         _tried = True
         if os.environ.get("RT2022_NO_NATIVE"):
             return None
-        if not os.path.exists(_SO_PATH) and os.path.isdir(_NATIVE_DIR):
-            try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR], check=True, capture_output=True, timeout=120
-                )
-            except (OSError, subprocess.SubprocessError):
-                return None
-        if not os.path.exists(_SO_PATH):
+        so_path = build()
+        if so_path is None:
             return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError:
-            return None
+        lib = ctypes.CDLL(so_path)
+        LIBRARY_PATH = so_path
 
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.rt_obj_open.restype = ctypes.c_void_p

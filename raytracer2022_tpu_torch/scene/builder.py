@@ -43,6 +43,7 @@ from ..scene.types import (
     TextureTable,
 )
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.imageio import read_image
 
 POINT_COUNT = 256
 
@@ -155,14 +156,7 @@ class SceneBuilder:
         if isinstance(source, str):
             if source in self._image_cache:
                 return self._image_cache[source]
-            try:
-                from PIL import Image
-            except ImportError as e:
-                raise ImportError(
-                    "image textures read from files need Pillow, which is not installed"
-                ) from e
-
-            arr = np.asarray(Image.open(source).convert("RGB"), dtype=np.uint8)
+            arr = read_image(source)  # .jpg/.jpeg/.png, decoded as Pillow's convert("RGB")
             img_id = len(self.images)
             # store rows v-flipped, like ImageTexture::new (texture/mod.rs:96-105)
             self.images.append(arr[::-1].copy())

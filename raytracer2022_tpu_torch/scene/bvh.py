@@ -1,7 +1,7 @@
 """Host-side BVH build, flattened in preorder with skip links.
 
 Counterpart of ``raytracer2022_tpu/scene/bvh.py``: the native binned-SAH
-builder when ``native/librt_native.so`` loads, else the same NumPy
+builder when the port's host runtime loads (``native.py``), else the same NumPy
 largest-extent median split.  Node ``i`` continues to ``i+1`` on an AABB
 hit and jumps to ``skip[i]`` on a miss; leaves own contiguous windows of
 the reordered primitive array.

@@ -6,8 +6,12 @@ Counterpart of ``raytracer2022_tpu/scene/library.py`` with every scene
 compiles on the host for any ``device`` (default: the card; without one
 it raises), and every scene renders.
 ``earth``, ``final_scene``, ``obj_uv_demo`` and ``wwscene`` read assets
-from ``RT2022_SOURCE_DIR`` (default: ``assets/`` at the repository root),
-which the repository does not hold; image files need Pillow.
+(``earthmap.jpg``, ``Saturn.jpg``, ``Jupiter.jpg``, ``Mars.jpg``,
+``obj/Shuttle.obj``) from ``source_dir``, by default ``RT2022_SOURCE_DIR``
+as it is when the scene is built, else ``assets/`` at the repository root.
+The repository does not hold the reference's assets;
+``chip_smoke.write_stand_in_assets`` writes generated stand-ins.  Images are
+decoded by the port's own codec (``utils/imageio.py``), without Pillow.
 """
 
 from __future__ import annotations
@@ -24,7 +28,24 @@ from .types import SceneData
 
 # asset directory of the scenes that read files (images, OBJ meshes)
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-REFERENCE_SOURCE = os.environ.get("RT2022_SOURCE_DIR", os.path.join(_REPO_ROOT, "assets"))
+DEFAULT_SOURCE = os.path.join(_REPO_ROOT, "assets")
+
+
+def _source_root(source_dir: Optional[str]) -> str:
+    return source_dir or os.environ.get("RT2022_SOURCE_DIR", DEFAULT_SOURCE)
+
+
+def _asset(source_dir: Optional[str], *parts: str) -> str:
+    """Path of an asset file; a missing file raises naming it and
+    ``RT2022_SOURCE_DIR``."""
+    path = os.path.join(_source_root(source_dir), *parts)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"scene asset {path!r} is missing: set RT2022_SOURCE_DIR (now "
+            f"{os.environ.get('RT2022_SOURCE_DIR')!r}) to a directory holding it, or write "
+            "stand-ins with chip_smoke.write_stand_in_assets"
+        )
+    return path
 
 
 @dataclass
@@ -107,11 +128,11 @@ def two_perlin_spheres(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
 
 
 def earth(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
+    seed: int = 0, source_dir: Optional[str] = None, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """Earth-textured sphere (scene.rs:127-140)."""
     b = SceneBuilder(seed=seed)
-    tex = b.image(os.path.join(source_dir, "earthmap.jpg"))
+    tex = b.image(_asset(source_dir, "earthmap.jpg"))
     b.sphere((0, 0, 0), 2, b.lambertian(tex))
     cam = _book_camera((13, 2, 3), (0, 0, 0), 20)
     return SceneBundle(b.finalize(device=device), cam, background=None, name="earth")
@@ -200,7 +221,7 @@ def cornell_smoke(seed: int = 0, device=DEFAULT_DEVICE) -> SceneBundle:
 
 
 def final_scene(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
+    seed: int = 0, source_dir: Optional[str] = None, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """Book2 final composite (scene.rs:260-362)."""
     b = SceneBuilder(seed=seed)
@@ -233,7 +254,7 @@ def final_scene(
     world_boundary = b.sphere((0, 0, 0), 5000, b.dielectric(1.5))
     b.constant_medium([world_boundary], 0.0001, (1.0, 1.0, 1.0))
 
-    emat = b.lambertian(b.image(os.path.join(source_dir, "earthmap.jpg")))
+    emat = b.lambertian(b.image(_asset(source_dir, "earthmap.jpg")))
     b.sphere((400, 200, 400), 100, emat)
     b.sphere((220, 280, 300), 80, b.lambertian(b.noise(0.1)))
 
@@ -285,7 +306,7 @@ def _import_obj(
 
 
 def obj_uv_demo(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
+    seed: int = 0, source_dir: Optional[str] = None, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """Smoke scene for the ObjTexture path (TEX_OBJUV): an earth-textured
     uv-mapped quad mesh under the sky gradient.  Exercises the full chain
@@ -294,7 +315,7 @@ def obj_uv_demo(
     import tempfile
 
     b = SceneBuilder(seed=seed)
-    tex = b.objuv(os.path.join(source_dir, "earthmap.jpg"))
+    tex = b.objuv(_asset(source_dir, "earthmap.jpg"))
     mat = b.lambertian(tex)
     quad = (
         "v -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\n"
@@ -313,7 +334,7 @@ def obj_uv_demo(
 
 
 def wwscene(
-    seed: int = 0, source_dir: str = REFERENCE_SOURCE, device=DEFAULT_DEVICE
+    seed: int = 0, source_dir: Optional[str] = None, device=DEFAULT_DEVICE
 ) -> SceneBundle:
     """The active composite scene (scene.rs:468-571): Saturn system with
     rings, planets, stars, and the OBJ shuttle.
@@ -327,9 +348,9 @@ def wwscene(
     light = b.sphere((800, 700, -800), 70, b.diffuse_light((130.0, 130.0, 130.0)))
     b.add_light(light)
 
-    b.sphere((0, 0, 0), 43, b.lambertian(b.image(os.path.join(source_dir, "Saturn.jpg"))))
-    b.sphere((150, 20, 150), 26, b.lambertian(b.image(os.path.join(source_dir, "Jupiter.jpg"))))
-    b.sphere((480, 25, 500), 25, b.lambertian(b.image(os.path.join(source_dir, "Mars.jpg"))))
+    b.sphere((0, 0, 0), 43, b.lambertian(b.image(_asset(source_dir, "Saturn.jpg"))))
+    b.sphere((150, 20, 150), 26, b.lambertian(b.image(_asset(source_dir, "Jupiter.jpg"))))
+    b.sphere((480, 25, 500), 25, b.lambertian(b.image(_asset(source_dir, "Mars.jpg"))))
 
     def xz_disk_unit():
         while True:
@@ -371,13 +392,13 @@ def wwscene(
     grey = b.lambertian((0.78, 0.78, 0.78))
     _import_obj(
         b,
-        os.path.join(source_dir, "obj", "Shuttle.obj"),
+        _asset(source_dir, "obj", "Shuttle.obj"),
         grey,
         zoom=13.5,
         rot_y=56.0,
         trans=(40.88, 1.3, -85.59),
     )
-    ship_path = os.path.join(source_dir, "obj", "Ship.obj")
+    ship_path = os.path.join(_source_root(source_dir), "obj", "Ship.obj")
     if os.path.exists(ship_path) and os.path.getsize(ship_path) > 0:
         _import_obj(b, ship_path, grey, zoom=0.56, rot_y=153.0, trans=(15.0, 2.0, -116.0))
 
@@ -394,6 +415,8 @@ def wwscene(
     )
     return SceneBundle(b.finalize(device=device), cam, background=(0.0, 0.0, 0.0), name="wwscene")
 
+
+READS_FILES = ("earth", "final_scene", "obj_uv_demo", "wwscene")  # the scenes that read asset files
 
 SCENES = {
     "obj_uv_demo": obj_uv_demo,

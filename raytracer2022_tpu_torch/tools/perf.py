@@ -5,12 +5,14 @@ Counterpart of ``tools/perf.py``.  Usage::
     python -m raytracer2022_tpu_torch.tools.perf [scene ...] [--spp 16] [--size 128x128] \\
         [--depth 50] [--reps 3] [--scan] [--device cuda]
 
-A scene is a name of ``scene.library.SCENES`` that needs no file, a
-stand-in (``final_scene`` and ``wwscene``, whose files the repository does
-not hold, are ``chip_smoke.py``'s stand-in final_scene with a generated
-earth image and its 13,056-triangle stand-in mesh), or ``module:function``
-as ``parallel/worker.py::build_scene`` takes it.  The default list is
-cornell_box, random_scene, final_scene and wwscene.
+A scene is a name of ``scene.library.SCENES`` or ``module:function`` as
+``parallel/worker.py::build_scene`` takes it.  The scenes that read files
+(``earth``, ``final_scene``, ``obj_uv_demo``, ``wwscene``) read them from
+``RT2022_SOURCE_DIR`` as the library does; where it is unset, from the
+stand-ins that ``chip_smoke.write_stand_in_assets`` writes into a temporary
+directory (the repository does not hold the reference's files).  Their
+records name the directory.  The default list is cornell_box,
+random_scene, final_scene and wwscene.
 
 Each scene renders one launch of ``render_batch_regen`` with the JAX tool's
 split, ``spp_par = max(1, min(spp // 8, 2**19 // (w * h)))`` lanes per
@@ -30,14 +32,13 @@ plain versions on the CPU, which says nothing of the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import tempfile
 import time
 
 DEFAULT_SCENES = ("cornell_box", "random_scene", "final_scene", "wwscene")
-STAND_INS = {
-    "final_scene": "chip_smoke:final_scene_with_earth",
-    "wwscene": "chip_smoke:stand_in_mesh_scene",
-}
 
 
 def regen_split(spp: int, width: int, height: int) -> tuple[int, int]:
@@ -58,7 +59,7 @@ def measure(name: str, width: int, height: int, spp: int, depth: int, reps: int,
     from . import device_kind
 
     t0 = time.perf_counter()
-    scene, cam, background = build_scene(STAND_INS.get(name, name), width, height, device)
+    scene, cam, background = build_scene(name, width, height, device)
     synchronize(device)
     t_build = time.perf_counter() - t0
     tcfg = RenderConfig(width=width, height=height, spp=spp, max_depth=depth, background=background).trace_cfg()
@@ -100,6 +101,7 @@ def measure(name: str, width: int, height: int, spp: int, depth: int, reps: int,
 
 
 def main(argv=None) -> int:
+    from ..scene.library import READS_FILES
     from ..utils.device import resolve_device
     from . import device_line
 
@@ -115,10 +117,21 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     h, w = (int(x) for x in args.size.split("x"))
+    names = args.scenes or DEFAULT_SCENES
     print(device_line(device), flush=True)
-    for name in args.scenes or DEFAULT_SCENES:
-        rec = measure(name, w, h, args.spp, args.depth, args.reps, args.scan, device)
-        print(json.dumps(rec), flush=True)
+    with contextlib.ExitStack() as stack:
+        src = os.environ.get("RT2022_SOURCE_DIR")
+        if src is None and set(names) & set(READS_FILES):
+            import chip_smoke
+
+            src = os.path.join(stack.enter_context(tempfile.TemporaryDirectory()), "stand-ins")
+            chip_smoke.write_stand_in_assets(src)
+            stack.enter_context(chip_smoke.source_dir_env(src))
+        for name in names:
+            rec = measure(name, w, h, args.spp, args.depth, args.reps, args.scan, device)
+            if name in READS_FILES:
+                rec["assets"] = src
+            print(json.dumps(rec), flush=True)
     return 0
 
 

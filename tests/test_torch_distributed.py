@@ -27,6 +27,7 @@ from raytracer2022_tpu_torch.render.integrator import derive_seed
 from raytracer2022_tpu_torch.render.renderer import RenderConfig
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder
 from raytracer2022_tpu_torch.scene.library import cornell_box
+from raytracer2022_tpu_torch.utils.imageio import read_png
 
 torch.set_num_threads(1)
 
@@ -125,7 +126,7 @@ def test_cli_ranks_write_one_image(tmp_path, monkeypatch):
     cfg = RenderConfig(width=16, height=16, spp=4, max_depth=4, background=bundle.background)
     parts = [render_regen_shard(bundle.scene, cam, cfg, r, WORLD) for r in range(WORLD)]
     expect = tonemap_u8(parts[0][0] + parts[1][0], parts[0][1]).numpy()
-    assert np.array_equal(chip_smoke._read_png(str(out)), expect)
+    assert np.array_equal(read_png(str(out)), expect)
 
 
 def test_dryrun_task(tmp_path):

@@ -29,6 +29,7 @@ from raytracer2022_tpu_torch.parallel.mesh import (
 from raytracer2022_tpu_torch.render.camera import make_camera
 from raytracer2022_tpu_torch.render.renderer import RenderConfig
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+from raytracer2022_tpu_torch.utils.imageio import read_png
 
 torch.set_num_threads(1)
 
@@ -171,7 +172,7 @@ def test_cli_sharded_on_one_device_renders_as_before(tmp_path):
             "--max-depth", "3", "--quiet"]
     assert cli.main([*base, "--out", paths[0]]) == 0
     assert cli.main([*base, "--sharded", "--out", paths[1]]) == 0
-    a, b = (chip_smoke._read_png(p) for p in paths)
+    a, b = (read_png(p) for p in paths)
     assert np.array_equal(a, b) and a.shape == (12, 12, 3)
     assert not torch.distributed.is_initialized()
 

@@ -27,6 +27,7 @@ from raytracer2022_tpu_torch.render.integrator import (
     trace_regen,
 )
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+from raytracer2022_tpu_torch.utils.imageio import read_png
 
 torch.set_num_threads(1)
 
@@ -183,7 +184,7 @@ def test_cli_cpu_writes_png(tmp_path):
     rc = cli.main(["--scene", "cornell_box", "--width", "16", "--height", "16", "--spp", "4",
                    "--max-depth", "8", "--device", "cpu", "--out", out, "--quiet"])
     assert rc == 0 and os.path.exists(out)
-    img = chip_smoke._read_png(out)
+    img = read_png(out)
     assert img.shape == (16, 16, 3) and img.dtype == np.uint8
     assert img.max() > 0
 

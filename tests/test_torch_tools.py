@@ -42,6 +42,27 @@ def test_perf_on_the_cpu(capsys, scan):
             assert np.isfinite(r[key]) and r[key] > 0, (key, r[key])
 
 
+def test_perf_renders_the_file_bound_scenes_from_the_asset_directory(capsys, tmp_path, monkeypatch):
+    import chip_smoke
+
+    src = str(tmp_path / "assets")
+    chip_smoke.write_stand_in_assets(src, shuttle=(20, 16))
+    monkeypatch.setenv("RT2022_SOURCE_DIR", src)
+    argv = ["earth", "obj_uv_demo", "--size", "8x8", "--spp", "2", "--depth", "4", "--device", "cpu"]
+    assert perf.main(argv) == 0
+    recs = _json_lines(capsys.readouterr().out)
+    assert [r["scene"] for r in recs] == ["earth", "obj_uv_demo"]
+    assert all(r["assets"] == src and r["prims"] > 0 and r["Mpaths_per_s"] > 0 for r in recs)
+
+
+def test_perf_writes_stand_ins_where_no_asset_directory_is_set(capsys, monkeypatch):
+    monkeypatch.delenv("RT2022_SOURCE_DIR", raising=False)
+    assert perf.main(["earth", "--size", "8x8", "--spp", "2", "--depth", "4", "--device", "cpu"]) == 0
+    (rec,) = _json_lines(capsys.readouterr().out)
+    assert rec["assets"].endswith("stand-ins") and rec["prims"] > 0 and rec["Mpaths_per_s"] > 0
+    assert not os.path.exists(rec["assets"]) and "RT2022_SOURCE_DIR" not in os.environ
+
+
 def test_scaling_on_two_gloo_ranks(capsys):
     """Each rank's iteration count is the one a single process computes
     with that rank's generator; the work-normalised efficiency is at most 1."""
