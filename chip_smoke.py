@@ -20,7 +20,11 @@ textures by the port's encoder, an OBJ torus for the Shuttle), decodes
 them with the port's decoder, renders the JAX CLI's default invocation
 (``wwscene``, 640x360 x 100 spp, depth 50, K1 on the OBJ mesh's tree)
 through ``cli.main`` into a JPEG, holds it card against CPU, and renders
-``earth``, ``obj_uv_demo`` and ``final_scene`` from the files.  It runs
+``earth``, ``obj_uv_demo`` and ``final_scene`` from the files.  Phase
+``flagship`` renders the reference's own frame, ``wwscene`` at 2560x1440,
+depth 50, through ``tools/flagship.py``: K1 against its plain version on a
+full-frame strip's rays, 4 spp in two chunks, and the same run interrupted
+and resumed, byte-equal to the uninterrupted image.  It runs
 the pixel-pool and quota schedules with exact
 per-pixel sample counts, the ray sort and the fixed-depth ``trace``, and
 times the cluster walk against K1 on one sphere tree.  The ``diff`` phase
@@ -811,28 +815,41 @@ def mesh_rays(mesh, cam, rng):
     return o, d, tm, t_dense
 
 
-def render_capturing(scene, cam, cfg, calls, launch_log=None):
-    """``render_sum_n`` with the inputs of K1 calls ``calls`` (counted from
-    0) kept -> (total, n, [[o, d, tm, t_init] of each kept call])."""
+def capture_k1(launch, calls) -> list:
+    """Run ``launch()`` -> [([o, d, tm, t_init], (t, prim, row)) of K1
+    calls ``calls`` (counted from 0)]: each kept call's inputs, cloned
+    before the call, and its outputs."""
     from raytracer2022_tpu_torch.ops import bvh8
-    from raytracer2022_tpu_torch.render.renderer import render_sum_n
 
     traverse = bvh8.traverse_bvh8
-    captured = []
+    kept = []
     seen = [-1]
 
     def capturing(*a, **kw):
         seen[0] += 1
-        if seen[0] in calls:
-            captured.append([x.clone() for x in (*a[2:5], kw["t_init"])])
-        return traverse(*a, **kw)
+        inputs = [x.clone() for x in (*a[2:5], kw["t_init"])] if seen[0] in calls else None
+        out = traverse(*a, **kw)
+        if inputs is not None:
+            kept.append((inputs, out))
+        return out
 
     bvh8.traverse_bvh8 = capturing
     try:
-        total, n = render_sum_n(scene, cam, cfg, launch_log=launch_log)
+        launch()
     finally:
         bvh8.traverse_bvh8 = traverse
-    return total, n, captured
+    return kept
+
+
+def render_capturing(scene, cam, cfg, calls, launch_log=None):
+    """``render_sum_n`` with the inputs of K1 calls ``calls`` (counted from
+    0) kept -> (total, n, [[o, d, tm, t_init] of each kept call])."""
+    from raytracer2022_tpu_torch.render.renderer import render_sum_n
+
+    result = []
+    kept = capture_k1(lambda: result.append(render_sum_n(scene, cam, cfg, launch_log=launch_log)), calls)
+    (total, n), = result
+    return total, n, [inputs for inputs, _ in kept]
 
 
 def s2_rays(captured):
@@ -1146,6 +1163,133 @@ def phase_assets(dev, smi) -> dict:
             "launches": launches, "groups": groups, "depth": depth, "tree_memory": memory, "decode_s": decode_s,
             "build_s": build_s, "check_z": ww_z,
             "mesh_share": share, "small_s": small}
+
+
+FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT = 2560, 1440  # the reference's own frame (main.rs:33-41)
+FLAGSHIP_SPP, FLAGSHIP_CHUNK = 4, 2  # phase flagship's run: two chunks of the tool's loop
+FLAGSHIP_MAX_MAE = 0.01  # the resumed image against a quality-100 JPEG of the uninterrupted one
+
+
+def phase_flagship(dev, smi) -> dict:
+    """The reference's own workload at its full frame: ``wwscene`` at
+    2560x1440, depth 50, from stand-in assets.  K1 against its plain version
+    on the first K1 call of a full-frame strip launch (102 rows, 261,120
+    rays: the strip whose camera rays hit the mesh most) and of the 12-row
+    last strip; ``tools.flagship.main`` for 4 spp in chunks of 2 on a fresh state;
+    the same run interrupted after the first chunk and resumed, whose image
+    must equal the uninterrupted one byte for byte and match a quality-100
+    JPEG of it as the golden."""
+    import io
+    import json
+    import os
+    import tempfile
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.ops import bvh8
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen, step_generator
+    from raytracer2022_tpu_torch.scene.library import SCENES
+    from raytracer2022_tpu_torch.tools import flagship
+    from raytracer2022_tpu_torch.tools.flagship import FIRST_SEED
+    from raytracer2022_tpu_torch.utils.imageio import read_png, write_jpeg
+
+    w, h = FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT
+    with tempfile.TemporaryDirectory() as tmp, source_dir_env(os.path.join(tmp, "source")) as src:
+        write_stand_in_assets(src)
+
+        # K1 on the flagship's own rays: the first K1 call (camera rays) of
+        # each strip launch of chunk 0's shape at 1 spp; held against its
+        # plain version on the strip whose call hits the mesh most, and on
+        # the short last strip
+        bundle = SCENES["wwscene"](device=dev)
+        (tree,) = [t for t in bundle.scene.bvh8 if t is not None]
+        cam = make_camera(**bundle.camera_kwargs, device=dev)
+        tcfg = RenderConfig(width=w, height=h, max_depth=DEPTH, background=bundle.background).trace_cfg()
+        rows = min(h, LANES // w)
+        firsts = []
+        for s in range(-(-h // rows)):
+            ((inputs, out),) = capture_k1(lambda: render_batch_regen(
+                bundle.scene, cam, step_generator(FIRST_SEED, s, dev), w, h, 1, 1, tcfg, row0=s * rows,
+                rows=min(rows, h - s * rows)), (0,))
+            firsts.append((inputs, int((out[1] >= 0).sum())))
+            del out
+        hits = [n for _, n in firsts]
+        most = max(range(len(firsts)), key=hits.__getitem__)
+        assert hits[most] > 0, "no strip's camera rays hit the mesh"
+        parity = {}
+        for s in sorted({most, len(firsts) - 1}):
+            o, d, tm, t_init = firsts[s][0]
+            rs = min(rows, h - s * rows)
+            assert tm.shape[0] == rs * w, f"strip {s}: K1 call 0 took {tm.shape[0]} rays, not {rs * w}"
+            parity[s] = rep = check_parity(TRIANGLE, *run_both(tree, TRIANGLE, o, d, tm, t_init))
+            print(f"K1 parity flagship strip {s} of {len(firsts)} ({rs} rows), its launch's first K1 call "
+                  f"({tm.shape[0]} camera rays): hits {rep['hits']}, max|dt| {rep['max_abs_err']:.3g}, ids equal "
+                  f"{rep['id_match']:.5f}", flush=True)
+        print(f"flagship: mesh hits of each strip's first K1 call {hits}", flush=True)
+        rays = firsts[most][0][2].shape[0]  # the rays K1 took in the parity call of the strip with the most hits
+        del firsts
+
+        def run(tag: str, spp: int, state: str, golden: str = "") -> dict:
+            """tools.flagship.main, its output echoed, into ``tag.png``."""
+            out = os.path.join(tmp, f"{tag}.png")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = flagship.main(["--spp", str(spp), "--chunk", str(FLAGSHIP_CHUNK), "--width", str(w),
+                                    "--height", str(h), "--state", state, "--out", out, "--golden", golden,
+                                    "--device", str(dev)])
+            dt = time.perf_counter() - t0
+            print(buf.getvalue(), end="", flush=True)
+            assert rc == 0, f"flagship run {tag} returned {rc}"
+            lines = buf.getvalue().strip().splitlines()
+            rec = json.loads(lines[-1])
+            chunks = [line for line in lines if line.startswith("# chunk ")]
+            resumed = [line for line in lines if line.startswith("# resuming")]
+            print(f"flagship run {tag}: --spp {spp} --chunk {FLAGSHIP_CHUNK}, {len(chunks)} chunk(s) rendered: "
+                  f"{rec['wall_s']} s of render over the state's chunks ({dt} s wall of this call, scene build and "
+                  f"writes included), {rec['Mpaths_per_s']} Mpaths/s, K1 launches {rec['k1_launches']} ({smi})",
+                  flush=True)
+            assert rec["device"] == torch.cuda.get_device_name(dev) and rec["assets"] == src, rec
+            with open(out, "rb") as f:
+                png = f.read()
+            return {"wall_s": dt, "rec": rec, "chunks": len(chunks), "resumed": resumed, "png": png, "out": out}
+
+        # the tool's main path, uninterrupted
+        state_b = os.path.join(tmp, "whole.npz")
+        torch.cuda.synchronize(dev)
+        bvh8.LAUNCHES = 0  # count only this run's launches
+        whole = run("whole", FLAGSHIP_SPP, state_b)
+        launches = bvh8.LAUNCHES
+        assert launches > 0, "the flagship run never launched K1"
+        assert whole["rec"]["k1_launches"] == launches, (whole["rec"]["k1_launches"], launches)
+        n_chunks = -(-FLAGSHIP_SPP // FLAGSHIP_CHUNK)
+        assert whole["chunks"] == n_chunks and not whole["resumed"], "the fresh run resumed or skipped a chunk"
+        img = read_png(whole["out"])
+        assert img.shape == (h, w, 3) and img.std() > 1.0 and img.max() > 64, f"flagship image {img.shape} is blank"
+        golden = os.path.join(tmp, "golden.jpg")
+        write_jpeg(golden, img)
+
+        # the same run killed after its first chunk, then resumed
+        state_c = os.path.join(tmp, "resumed.npz")
+        first = run("first", FLAGSHIP_CHUNK, state_c)
+        resumed = run("resumed", FLAGSHIP_SPP, state_c, golden)
+        assert first["chunks"] == 1 and resumed["chunks"] == n_chunks - 1, "the resumed run rendered a done chunk"
+        assert resumed["resumed"] == [f"# resuming: {FLAGSHIP_CHUNK}/{FLAGSHIP_SPP} spp, "
+                                      f"{first['rec']['wall_s']:.0f}s so far"], resumed["resumed"]
+        with np.load(state_b) as a, np.load(state_c) as b:
+            assert np.array_equal(a["total"], b["total"]) and int(a["done_spp"]) == int(b["done_spp"]) == FLAGSHIP_SPP
+        assert resumed["png"] == whole["png"], "the resumed image differs from the uninterrupted one"
+        mae = resumed["rec"]["mae"]
+        assert mae < FLAGSHIP_MAX_MAE, f"resumed image against the golden: mae {mae}"
+        print(f"flagship: resumed image equals the uninterrupted one byte for byte; against its q100 JPEG mae {mae}, "
+              f"rmse {resumed['rec']['rmse']}, exposure {resumed['rec']['exposure']}; image channel means "
+              f"{img.reshape(-1, 3).mean(axis=0).round(3).tolist()}", flush=True)
+    runs = {tag: {"wall_s": r["wall_s"], "render_s": r["rec"]["wall_s"], "mpaths": r["rec"]["Mpaths_per_s"],
+                  "k1": r["rec"]["k1_launches"], "chunks": r["chunks"], "spp": r["rec"]["paths"] // (w * h)}
+            for tag, r in (("whole", whole), ("first", first), ("resumed", resumed))}
+    return {"launches": launches, "parity": parity, "rays": rays, "strip_hits": hits, "mae": mae, "runs": runs}
 
 
 def _dome(builder, mirrors: bool = True):
@@ -1968,6 +2112,9 @@ def main(argv=None) -> int:
     assets = phase_assets(dev, smi)
     print(f"[phase assets: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
+    flag = phase_flagship(dev, smi)
+    print(f"[phase flagship: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
     sched = phase_schedules(dev, smi)
     print(f"[phase schedules: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
@@ -1994,6 +2141,7 @@ def main(argv=None) -> int:
         "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "perf": perf_rec,
         "deep_render_s": deep["render_s"],
         "wwscene": {k: assets[k] for k in ("seconds", "mpaths", "wall_mpaths", "spp", "launches", "decode_s", "small_s")},
+        "flagship": {k: flag[k] for k in ("runs", "mae", "launches")},
         "card": smi,
     }}), flush=True)
 
@@ -2024,10 +2172,12 @@ def main(argv=None) -> int:
                              "mesh_diff_forward": diff["mesh"]["k1_per_forward"],
                              "mesh_sharded_rank0": multi["world2_gloo"]["k1"][0],
                              "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1],
-                             "deep_mesh": deep["launches"], "wwscene": assets["launches"]},
+                             "deep_mesh": deep["launches"], "wwscene": assets["launches"],
+                             "flagship": flag["launches"]},
         "launches_per_mesh_render": mesh_launches,
         "launches_per_fwd_bwd_step": diff["mesh"]["k1_per_step"],
-        "max_abs_err": max([r["max_abs_err"] for r in reports.values()] + [deep["max_abs_err"]]),
+        "max_abs_err": max([r["max_abs_err"] for r in reports.values()] + [deep["max_abs_err"]]
+                           + [r["max_abs_err"] for r in flag["parity"].values()]),
         "ms": s1["ms"],
         "plain_ms": p_ms,
         "bound_ms": s1["bound_ms"],
@@ -2039,6 +2189,8 @@ def main(argv=None) -> int:
         "shared_fits_groups": fits_groups,
         "deep_tree": {k: deep[k] for k in ("depth", "groups", "tree_memory", "deepest_stack")},
         "wwscene_render": {k: assets[k] for k in ("launches", "groups", "depth", "tree_memory", "spp")},
+        "flagship_run": {"launches": flag["launches"], "spp": flag["runs"]["whole"]["spp"],
+                         "rays_per_launch": flag["rays"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -31,14 +31,15 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__f
 DEFAULT_SOURCE = os.path.join(_REPO_ROOT, "assets")
 
 
-def _source_root(source_dir: Optional[str]) -> str:
+def source_root(source_dir: Optional[str] = None) -> str:
+    """The directory the file-bound scenes read their assets from."""
     return source_dir or os.environ.get("RT2022_SOURCE_DIR", DEFAULT_SOURCE)
 
 
 def _asset(source_dir: Optional[str], *parts: str) -> str:
     """Path of an asset file; a missing file raises naming it and
     ``RT2022_SOURCE_DIR``."""
-    path = os.path.join(_source_root(source_dir), *parts)
+    path = os.path.join(source_root(source_dir), *parts)
     if not os.path.isfile(path):
         raise FileNotFoundError(
             f"scene asset {path!r} is missing: set RT2022_SOURCE_DIR (now "
@@ -398,7 +399,7 @@ def wwscene(
         rot_y=56.0,
         trans=(40.88, 1.3, -85.59),
     )
-    ship_path = os.path.join(_source_root(source_dir), "obj", "Ship.obj")
+    ship_path = os.path.join(source_root(source_dir), "obj", "Ship.obj")
     if os.path.exists(ship_path) and os.path.getsize(ship_path) > 0:
         _import_obj(b, ship_path, grey, zoom=0.56, rot_y=153.0, trans=(15.0, 2.0, -116.0))
 

@@ -1,5 +1,7 @@
-"""Measurement tools beside the package: :mod:`.perf` (per-scene
-throughput) and :mod:`.scaling` (the sharded render against one rank)."""
+"""Tools beside the package: :mod:`.perf` (per-scene throughput),
+:mod:`.scaling` (the sharded render against one rank), :mod:`.flagship`
+(the reference's whole workload, restart-safe) and :mod:`.golden` (renders
+against the reference's committed images)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """The port's measurement tools on the CPU: ``tools/perf.py`` and
-``tools/scaling.py`` (two gloo ranks), at tiny sizes.  Their numbers here
+``tools/scaling.py`` (two gloo ranks), at tiny sizes; every tool needs a
+card unless asked for the CPU, and none imports JAX.  Their numbers here
 time the plain versions on this host; the card's come from a run on the card."""
 
 import json
@@ -14,7 +15,7 @@ import torch
 from raytracer2022_tpu_torch.parallel.worker import SCALING_PROBE, build_scene
 from raytracer2022_tpu_torch.render.integrator import derive_seed, step_generator
 from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen
-from raytracer2022_tpu_torch.tools import perf, scaling
+from raytracer2022_tpu_torch.tools import flagship, golden, perf, scaling
 
 torch.set_num_threads(1)
 
@@ -95,10 +96,15 @@ def test_tools_need_a_card_unless_asked_for_the_cpu():
         perf.main(["cornell_box"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         scaling.main(["2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flagship.main(["--spp", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        golden.main(["--scene", "cornell_box_book"])
 
 
 def test_tools_import_neither_jax_nor_the_jax_package():
-    code = ("import sys; import raytracer2022_tpu_torch.tools.perf, raytracer2022_tpu_torch.tools.scaling; "
+    code = ("import sys; import raytracer2022_tpu_torch.tools.perf, raytracer2022_tpu_torch.tools.scaling, "
+            "raytracer2022_tpu_torch.tools.flagship, raytracer2022_tpu_torch.tools.golden; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'raytracer2022_tpu', 'tools')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
