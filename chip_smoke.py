@@ -902,6 +902,20 @@ def _rel(a, b) -> np.ndarray:
     return np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
 
 
+def _seed_means(scene, cam, cfg, seeds, spp: int) -> tuple:
+    """One render of ``cfg`` at ``spp`` samples for each seed: its channel
+    means as f64[len(seeds), 3], and the sample count of each render."""
+    import dataclasses
+
+    from raytracer2022_tpu_torch.render.renderer import render_sum_n
+
+    means = []
+    for seed in seeds:
+        total, n = render_sum_n(scene, cam, dataclasses.replace(cfg, spp=spp, seed=seed))
+        means.append(_means(total, n))
+    return np.array(means), n
+
+
 def card_vs_cpu(dev, label: str, build, cfg, card_seeds=(0,)) -> list:
     """Hold the card's channel means against the CPU's (plain versions) on
     one scene: ``CPU_SEEDS`` CPU renders at ``cfg`` give a mean and a
@@ -910,21 +924,9 @@ def card_vs_cpu(dev, label: str, build, cfg, card_seeds=(0,)) -> list:
     every channel of every card render agrees within ``MAX_Z`` standard
     errors of the difference and within ``MAX_REL``.  ``build(device)``
     returns ``(scene, camera)``.  Returns each card render's z."""
-    import dataclasses
-
-    from raytracer2022_tpu_torch.render.renderer import render_sum_n
-
-    scene, cam = build(dev)
-    m_cards = []
-    for seed in card_seeds:
-        total, n_card = render_sum_n(scene, cam, dataclasses.replace(cfg, spp=cfg.spp * CARD_FACTOR, seed=seed))
-        m_cards.append(_means(total, n_card))
-    scene, cam = build("cpu")
-    runs = []
-    for s in range(CPU_SEEDS):
-        total, n_cpu = render_sum_n(scene, cam, dataclasses.replace(cfg, seed=100 + s))
-        runs.append(_means(total, n_cpu))
-    m_cpu, sd = np.mean(runs, axis=0), np.std(runs, axis=0, ddof=1)
+    m_cards, n_card = _seed_means(*build(dev), cfg, card_seeds, cfg.spp * CARD_FACTOR)
+    runs, n_cpu = _seed_means(*build("cpu"), cfg, range(100, 100 + CPU_SEEDS), cfg.spp)
+    m_cpu, sd = runs.mean(axis=0), runs.std(axis=0, ddof=1)
     zs = []
     for seed, m_card in zip(card_seeds, m_cards):
         z = (m_card - m_cpu) / np.maximum(sd * np.sqrt(1.0 / CPU_SEEDS + n_cpu / n_card), 1e-12)
@@ -1036,6 +1038,96 @@ WW_CHECK_SHUTTLE = (24, 12)  # ... with a 576-triangle Shuttle, which the CPU's 
 FROM_FILES_SMALL = ("earth", "obj_uv_demo", "final_scene")  # rendered from the files at SMALL x SMALL
 
 
+def ww_check_build(source_dir: str):
+    """``build(device) -> (scene, camera)`` of the wwscene card-vs-CPU
+    check: ``wwscene`` from the files in ``source_dir``, its camera at the
+    aspect of ``WW_CHECK``."""
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.scene.library import SCENES
+
+    def build(device):
+        b = SCENES["wwscene"](source_dir=source_dir, device=device)
+        return b.scene, make_camera(**dict(b.camera_kwargs, aspect_ratio=WW_CHECK[0] / WW_CHECK[1]), device=device)
+
+    return build
+
+
+def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = CPU_SEEDS,
+                  factor: int = CARD_FACTOR, device: str = "cuda") -> dict:
+    """Draw or bias: wwscene's card-vs-CPU check (phase ``assets``) with
+    more seeds on both sides.  The check's own setup: ``WW_CHECK``, depth
+    ``DEPTH``, the stand-in assets with a ``WW_CHECK_SHUTTLE`` Shuttle; the
+    ``device`` renders each of ``card_seeds`` at ``factor`` times the samples,
+    the CPU each of ``cpu_seeds``.  Prints and returns, per
+    channel: ``pooled_z``, the pooled ``device`` mean against the pooled
+    CPU mean in standard errors from each side's own seed-to-seed variance;
+    ``single_z``, each ``device`` render against the CPU mean as the check
+    computes it (the CPU's variance only); ``single_z_first``, the same
+    against the mean of the first ``first`` CPU seeds (the check's own
+    CPU side when those are seeds 100-107); ``first_z``, that mean against
+    the whole CPU mean; ``device_sd`` and ``cpu_sd``, each side's
+    seed-to-seed sd, ``device_skew`` and ``cpu_skew`` the skewness of its
+    renders' channel means (``device_means``, ``cpu_means``), and
+    ``first_sd_ratio`` the first ``first`` CPU seeds' sd over ``cpu_sd``
+    (below 1 when rare bright paths are missing from them); ``sd_ratio``,
+    the ``device``'s seed-to-seed sd over the CPU's scaled to its samples
+    (about 1 when both are the same estimator and the seeds sample its
+    tail).  ``verdict`` is ``"draw"`` when every |pooled_z| < 3, else
+    ``"bias"``.  Not called by :func:`main`: run it alone with
+    ``python3 -c "import chip_smoke; chip_smoke.wwscene_study(range(16), range(100, 116))"``."""
+    import json
+    import tempfile
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig
+    from raytracer2022_tpu_torch.tools import device_line
+
+    card_seeds, cpu_seeds = list(card_seeds), list(cpu_seeds)
+    dev = torch.device(device)
+    line = device_line(dev)
+    print(line, flush=True)
+    w, h, n = WW_CHECK
+    cfg = RenderConfig(width=w, height=h, spp=n, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_stand_in_assets(tmp, shuttle=WW_CHECK_SHUTTLE)
+        build = ww_check_build(tmp)
+        t0 = time.perf_counter()
+        m_dev, n_dev = _seed_means(*build(dev), cfg, card_seeds, n * factor)
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_cpu, n_cpu = _seed_means(*build("cpu"), cfg, cpu_seeds, n)
+        cpu_s = time.perf_counter() - t0
+    mean_dev, var_dev = m_dev.mean(axis=0), m_dev.var(axis=0, ddof=1)
+    mean_cpu, var_cpu = m_cpu.mean(axis=0), m_cpu.var(axis=0, ddof=1)
+    sd_cpu = np.sqrt(var_cpu)
+    k, c = len(card_seeds), len(cpu_seeds)
+    pooled_z = (mean_dev - mean_cpu) / np.sqrt(var_dev / k + var_cpu / c)
+    single_z = (m_dev - mean_cpu) / (sd_cpu * np.sqrt(1.0 / c + n_cpu / n_dev))
+    mean_first, sd_first = m_cpu[:first].mean(axis=0), m_cpu[:first].std(axis=0, ddof=1)
+    single_z_first = (m_dev - mean_first) / (sd_first * np.sqrt(1.0 / first + n_cpu / n_dev))
+    first_z = (mean_first - mean_cpu) / (sd_cpu * np.sqrt(1.0 / first - 1.0 / c))
+
+    def skew(m):
+        return ((m - m.mean(axis=0)) ** 3).mean(axis=0) / m.std(axis=0) ** 3
+
+    result = {
+        "setup": f"wwscene {w}x{h}, depth {DEPTH}, Shuttle {WW_CHECK_SHUTTLE}, stand-in assets",
+        "device": line, "device_seeds": card_seeds, "device_spp": n_dev, "cpu_seeds": cpu_seeds, "cpu_spp": n_cpu,
+        "device_mean": mean_dev.tolist(), "cpu_mean": mean_cpu.tolist(), "cpu_first_mean": mean_first.tolist(),
+        "pooled_z": pooled_z.tolist(), "single_z": single_z.tolist(), "single_z_first": single_z_first.tolist(),
+        "first_z": first_z.tolist(), "device_sd": np.sqrt(var_dev).tolist(), "cpu_sd": sd_cpu.tolist(),
+        "device_skew": skew(m_dev).tolist(), "cpu_skew": skew(m_cpu).tolist(),
+        "first_sd_ratio": (sd_first / sd_cpu).tolist(),
+        "sd_ratio": (np.sqrt(var_dev) / (sd_cpu * np.sqrt(n_cpu / n_dev))).tolist(),
+        "verdict": "draw" if (np.abs(pooled_z) < 3.0).all() else "bias",
+        "device_s": dev_s, "cpu_s": cpu_s, "device_means": m_dev.tolist(), "cpu_means": m_cpu.tolist(),
+    }
+    print(json.dumps({"wwscene_study": result}), flush=True)
+    return result
+
+
 def _cli_capture(argv) -> tuple:
     """Run cli.main, echo its output, return (seconds, its Mpaths/s)."""
     import io
@@ -1142,12 +1234,7 @@ def phase_assets(dev, smi) -> dict:
         with open(os.path.join(check_dir, "obj", "Shuttle.obj"), "w") as f:
             f.write(shuttle_obj_text(*WW_CHECK_SHUTTLE))
 
-        def build(device):
-            b = SCENES["wwscene"](source_dir=check_dir, device=device)
-            return b.scene, make_camera(**dict(b.camera_kwargs, aspect_ratio=WW_CHECK[0] / WW_CHECK[1]),
-                                        device=device)
-
-        ww_z = card_vs_cpu(dev, "wwscene", build, cfg, card_seeds=WW_CHECK_CARD_SEEDS)
+        ww_z = card_vs_cpu(dev, "wwscene", ww_check_build(check_dir), cfg, card_seeds=WW_CHECK_CARD_SEEDS)
         small = {}
         for name in FROM_FILES_SMALL:
             path = os.path.join(tmp, f"{name}.jpg")

@@ -60,6 +60,13 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
+    from raytracer2022_tpu_torch.utils.imageio import image_extension
+
+    try:  # before the render, which an unwritable --out would lose
+        image_extension(args.out)
+    except ValueError as e:
+        parser.error(f"--out: {e}")
+
     import torch
     import torch.distributed as dist
 

@@ -67,6 +67,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = ap.parse_args(argv)
 
+    from ..utils.imageio import image_extension, read_image, write_image
+
+    try:  # before the state is read and the chunks run: the image is written last
+        image_extension(args.out)
+        if args.golden and os.path.exists(args.golden):
+            image_extension(args.golden)
+    except ValueError as e:
+        ap.error(str(e))
+
     import torch
 
     from ..ops import bvh8
@@ -75,7 +84,6 @@ def main(argv=None) -> int:
     from ..render.renderer import RenderConfig, render_sum_n
     from ..scene.library import SCENES, source_root
     from ..utils.device import resolve_device
-    from ..utils.imageio import read_image, write_image
     from . import device_kind, device_line
 
     device = resolve_device(args.device)

@@ -28,25 +28,31 @@ import zlib
 import numpy as np
 
 
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png")  # what read_image and write_image take, in any case
+
+
+def image_extension(path: str) -> str:
+    """The lower-case extension of ``path``; ``ValueError`` naming
+    ``IMAGE_EXTENSIONS`` unless it is one of them."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in IMAGE_EXTENSIONS:
+        raise ValueError(f"unsupported image extension {ext!r} of {path!r} (use {', '.join(IMAGE_EXTENSIONS)})")
+    return ext
+
+
 def read_image(path: str) -> np.ndarray:
     """u8[H, W, 3] of a ``.jpg``/``.jpeg`` or ``.png`` file."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".jpg", ".jpeg"):
-        return read_jpeg(path)
-    if ext == ".png":
+    if image_extension(path) == ".png":
         return read_png(path)
-    raise ValueError(f"unsupported image extension {ext!r} of {path!r} (use .jpg, .jpeg or .png)")
+    return read_jpeg(path)
 
 
 def write_image(path: str, img: np.ndarray) -> None:
     """Write u8[H, W, 3]: JPEG at quality 100 for ``.jpg``/``.jpeg``, PNG for ``.png``."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".jpg", ".jpeg"):
-        write_jpeg(path, img)
-    elif ext == ".png":
+    if image_extension(path) == ".png":
         write_png(path, img)
     else:
-        raise ValueError(f"unsupported image extension {ext!r} of {path!r} (use .jpg, .jpeg or .png)")
+        write_jpeg(path, img)
 
 
 def _rgb_u8(img) -> np.ndarray:

@@ -11,17 +11,18 @@ winner rows equal wherever the ids are.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu.ops.bvh8 import traverse_bvh8 as jax_traverse_bvh8
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu.scene.types import MSPHERE, RECT, RING, SPHERE, TRIANGLE
-from raytracer2022_tpu_torch.ops import bvh8
-from raytracer2022_tpu_torch.ops.bvh8 import (
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu.ops.bvh8 import traverse_bvh8 as jax_traverse_bvh8  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu.scene.types import MSPHERE, RECT, RING, SPHERE, TRIANGLE  # noqa: E402
+from raytracer2022_tpu_torch.ops import bvh8  # noqa: E402
+from raytracer2022_tpu_torch.ops.bvh8 import (  # noqa: E402
     FAR, SENT, traverse_bvh8, traverse_bvh8_plain, walk_bvh8_reference,
 )
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -8,22 +8,23 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from raytracer2022_tpu import make_camera as jax_make_camera
-from raytracer2022_tpu.render.integrator import TraceConfig as JaxTraceConfig
-from raytracer2022_tpu.render.renderer import render_batch_regen_diff as jax_render_batch_regen_diff
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch.render import integrator as I
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.integrator import TraceConfig, trace_regen_diff
-from raytracer2022_tpu_torch.render.renderer import (
+torch = pytest.importorskip("torch")
+
+from raytracer2022_tpu import make_camera as jax_make_camera  # noqa: E402
+from raytracer2022_tpu.render.integrator import TraceConfig as JaxTraceConfig  # noqa: E402
+from raytracer2022_tpu.render.renderer import render_batch_regen_diff as jax_render_batch_regen_diff  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch.render import integrator as I  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import TraceConfig, trace_regen_diff  # noqa: E402
+from raytracer2022_tpu_torch.render.renderer import (  # noqa: E402
     _regen_gen_rays,
     regen_iters_estimate,
     render_batch,
     render_batch_regen_diff,
 )
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -11,23 +11,24 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu_torch.parallel.mesh import (
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu_torch.parallel.mesh import (  # noqa: E402
     CAMERA_LEAVES,
     fit_step_fn,
     render_regen_shard,
     render_shard,
 )
-from raytracer2022_tpu_torch.parallel.worker import launch_local, rank_path
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.film import tonemap_u8
-from raytracer2022_tpu_torch.render.integrator import derive_seed
-from raytracer2022_tpu_torch.render.renderer import RenderConfig
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-from raytracer2022_tpu_torch.scene.library import cornell_box
-from raytracer2022_tpu_torch.utils.imageio import read_png
+from raytracer2022_tpu_torch.parallel.worker import launch_local, rank_path  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.film import tonemap_u8  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import derive_seed  # noqa: E402
+from raytracer2022_tpu_torch.render.renderer import RenderConfig  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
+from raytracer2022_tpu_torch.scene.library import cornell_box  # noqa: E402
+from raytracer2022_tpu_torch.utils.imageio import read_png  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -4,13 +4,14 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
-from raytracer2022_tpu_torch import fit
-from raytracer2022_tpu_torch.parallel.mesh import CAMERA_LEAVES, fit_step_fn, with_params
-from raytracer2022_tpu_torch.render.camera import Camera, make_camera
-from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+torch = pytest.importorskip("torch")
+
+from raytracer2022_tpu_torch import fit  # noqa: E402
+from raytracer2022_tpu_torch.parallel.mesh import CAMERA_LEAVES, fit_step_fn, with_params  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import Camera, make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -19,16 +19,17 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.film import tonemap_u8
-from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
-from raytracer2022_tpu_torch.scene.library import SCENES
-from raytracer2022_tpu_torch.tools import flagship
-from raytracer2022_tpu_torch.tools.golden import compare
-from raytracer2022_tpu_torch.utils.imageio import read_image, read_png, write_jpeg
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.film import tonemap_u8  # noqa: E402
+from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n  # noqa: E402
+from raytracer2022_tpu_torch.scene.library import SCENES  # noqa: E402
+from raytracer2022_tpu_torch.tools import flagship  # noqa: E402
+from raytracer2022_tpu_torch.tools.golden import compare  # noqa: E402
+from raytracer2022_tpu_torch.utils.imageio import read_image, read_png, write_jpeg  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -281,3 +282,51 @@ def test_a_state_of_another_run_is_refused(source_dir, tmp_path, kept, match):
     with pytest.raises(ValueError, match=match):
         run(source_dir, state, out, spp=4, chunk=2)
     assert state.read_bytes() == held and not out.exists()
+
+
+def _scene_reached(**kwargs):
+    raise RuntimeError("the scene was built")
+
+
+@pytest.mark.parametrize("state_held", [True, False])
+@pytest.mark.parametrize("flag, name", [("--out", "x.tif"), ("--out", "x.bmp"), ("--golden", "golden.bmp")])
+def test_an_unwritable_out_or_unreadable_golden_is_refused_first(tmp_path, monkeypatch, capsys, state_held, flag,
+                                                                 name):
+    """Refused when the flags are parsed: before the state is read (this
+    one, of another run, would raise ValueError if it were) and before any
+    chunk renders, so a held state stays byte-equal and none is made."""
+    from raytracer2022_tpu_torch.scene import library
+
+    monkeypatch.setitem(library.SCENES, "wwscene", _scene_reached)
+    state = tmp_path / "state.npz"
+    if state_held:
+        np.savez(state, total=np.zeros((3, H, W)), done_spp=2, elapsed=1.0)
+        held = state.read_bytes()
+    paths = {"--out": str(tmp_path / "out.png"), "--golden": ""}
+    paths[flag] = str(tmp_path / name)
+    if flag == "--golden":
+        (tmp_path / name).write_bytes(b"BM")
+    with pytest.raises(SystemExit) as e:
+        flagship.main(["--spp", "2", "--chunk", "1", "--width", str(W), "--height", str(H), "--state", str(state),
+                       "--out", paths["--out"], "--golden", paths["--golden"], "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert e.value.code == 2 and name in err and "(use .jpg, .jpeg, .png)" in err, err
+    assert state.read_bytes() == held if state_held else not state.exists()
+    assert not (tmp_path / "out.png").exists()
+
+
+@pytest.mark.parametrize("out, golden", [("x.jpg", ""), ("x.jpeg", ""), ("x.png", "golden.JPG"),
+                                         ("x.JPG", "golden.png"), ("x.png", "absent.bmp")])
+def test_a_writable_out_and_readable_golden_pass_the_check(tmp_path, monkeypatch, out, golden):
+    """.jpg, .jpeg and .png in any case pass, and a --golden that does not
+    exist is not checked (the tool skips it)."""
+    from raytracer2022_tpu_torch.scene import library
+
+    monkeypatch.setitem(library.SCENES, "wwscene", _scene_reached)
+    if golden and golden != "absent.bmp":
+        (tmp_path / golden).write_bytes(b"")
+    with pytest.raises(RuntimeError, match="the scene was built"):
+        flagship.main(["--spp", "2", "--chunk", "1", "--width", str(W), "--height", str(H), "--state",
+                       str(tmp_path / "state.npz"), "--out", str(tmp_path / out),
+                       "--golden", str(tmp_path / golden) if golden else "", "--device", "cpu"])
+    assert not (tmp_path / "state.npz").exists()

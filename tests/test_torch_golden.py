@@ -8,11 +8,12 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
-from raytracer2022_tpu_torch.tools import golden as tgolden
-from raytracer2022_tpu_torch.utils.imageio import read_png, write_jpeg
-from tools import golden as jgolden
+torch = pytest.importorskip("torch")
+
+from raytracer2022_tpu_torch.tools import golden as tgolden  # noqa: E402
+from raytracer2022_tpu_torch.utils.imageio import read_png, write_jpeg  # noqa: E402
+from tools import golden as jgolden  # noqa: E402
 
 torch.set_num_threads(1)
 

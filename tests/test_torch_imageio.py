@@ -17,7 +17,9 @@ import zlib
 import numpy as np
 import pytest
 
-from raytracer2022_tpu_torch.utils import imageio
+pytest.importorskip("torch")  # the package's __init__ imports torch
+
+from raytracer2022_tpu_torch.utils import imageio  # noqa: E402
 
 Image = pytest.importorskip("PIL.Image")
 

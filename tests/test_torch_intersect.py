@@ -6,16 +6,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu.ops import intersect as jx
-from raytracer2022_tpu.scene import library as jlib
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch.ops import intersect as tx
-from raytracer2022_tpu_torch.scene import library as tlib
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
-from raytracer2022_tpu_torch.scene.types import BOX, MEDIUM, MSPHERE, RECT, RING, SPHERE, TRIANGLE
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu.ops import intersect as jx  # noqa: E402
+from raytracer2022_tpu.scene import library as jlib  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch.ops import intersect as tx  # noqa: E402
+from raytracer2022_tpu_torch.scene import library as tlib  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
+from raytracer2022_tpu_torch.scene.types import BOX, MEDIUM, MSPHERE, RECT, RING, SPHERE, TRIANGLE  # noqa: E402
 
 torch.set_num_threads(1)
 

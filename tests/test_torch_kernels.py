@@ -15,15 +15,16 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu_torch.ops import bvh8, intersect
-from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain, walk_bvh8_reference
-from raytracer2022_tpu_torch.ops.intersect import closest_hit
-from raytracer2022_tpu_torch.render.camera import get_rays, make_camera
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-from raytracer2022_tpu_torch.scene.types import BOX, BVH8_ARRAYS, MEDIUM, TRIANGLE, Bvh8Tree
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu_torch.ops import bvh8, intersect  # noqa: E402
+from raytracer2022_tpu_torch.ops.bvh8 import FAR, traverse_bvh8, traverse_bvh8_plain, walk_bvh8_reference  # noqa: E402
+from raytracer2022_tpu_torch.ops.intersect import closest_hit  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import get_rays, make_camera  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
+from raytracer2022_tpu_torch.scene.types import BOX, BVH8_ARRAYS, MEDIUM, TRIANGLE, Bvh8Tree  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -10,26 +10,27 @@ import types
 import jax
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu import RenderConfig as JaxRenderConfig
-from raytracer2022_tpu import make_camera as jax_make_camera
-from raytracer2022_tpu.parallel import mesh as jax_mesh
-from raytracer2022_tpu.render.renderer import render_sum as jax_render_sum
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch.parallel import distributed as D
-from raytracer2022_tpu_torch.parallel.mesh import (
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu import RenderConfig as JaxRenderConfig  # noqa: E402
+from raytracer2022_tpu import make_camera as jax_make_camera  # noqa: E402
+from raytracer2022_tpu.parallel import mesh as jax_mesh  # noqa: E402
+from raytracer2022_tpu.render.renderer import render_sum as jax_render_sum  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch.parallel import distributed as D  # noqa: E402
+from raytracer2022_tpu_torch.parallel.mesh import (  # noqa: E402
     fit_step_fn,
     make_device_mesh,
     regen_split,
     render_regen_shard,
     render_shard,
 )
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.renderer import RenderConfig
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-from raytracer2022_tpu_torch.utils.imageio import read_png
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.renderer import RenderConfig  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
+from raytracer2022_tpu_torch.utils.imageio import read_png  # noqa: E402
 
 torch.set_num_threads(1)
 

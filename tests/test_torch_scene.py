@@ -11,18 +11,19 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-import raytracer2022_tpu.native as jax_native
-from raytracer2022_tpu.scene import library as jlib
-from raytracer2022_tpu.scene import objio as jax_objio
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch import native
-from raytracer2022_tpu_torch.scene import library as tlib
-from raytracer2022_tpu_torch.scene import objio
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
-from raytracer2022_tpu_torch.scene.types import SceneData, SceneStats
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+import raytracer2022_tpu.native as jax_native  # noqa: E402
+from raytracer2022_tpu.scene import library as jlib  # noqa: E402
+from raytracer2022_tpu.scene import objio as jax_objio  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch import native  # noqa: E402
+from raytracer2022_tpu_torch.scene import library as tlib  # noqa: E402
+from raytracer2022_tpu_torch.scene import objio  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
+from raytracer2022_tpu_torch.scene.types import SceneData, SceneStats  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -12,21 +12,22 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu.render.camera import make_camera as jax_make_camera
-from raytracer2022_tpu.render.integrator import TraceConfig as JaxTraceConfig
-from raytracer2022_tpu.render.renderer import render_batch_regen as jax_render_batch_regen
-from raytracer2022_tpu.scene import library as jlib
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch import cli
-from raytracer2022_tpu_torch.render import renderer as R
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.integrator import TraceConfig
-from raytracer2022_tpu_torch.scene import library as tlib
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
-from raytracer2022_tpu_torch.utils.imageio import read_png
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu.render.camera import make_camera as jax_make_camera  # noqa: E402
+from raytracer2022_tpu.render.integrator import TraceConfig as JaxTraceConfig  # noqa: E402
+from raytracer2022_tpu.render.renderer import render_batch_regen as jax_render_batch_regen  # noqa: E402
+from raytracer2022_tpu.scene import library as jlib  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch import cli  # noqa: E402
+from raytracer2022_tpu_torch.render import renderer as R  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import TraceConfig  # noqa: E402
+from raytracer2022_tpu_torch.scene import library as tlib  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
+from raytracer2022_tpu_torch.utils.imageio import read_png  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -6,14 +6,15 @@ fixed-depth ``trace`` against ``trace_regen``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from raytracer2022_tpu.ops import sort as jsort
-from raytracer2022_tpu_torch.ops import sort as tsort
-from raytracer2022_tpu_torch.render import renderer as R
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.integrator import Schedule, TraceConfig, trace_regen
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+torch = pytest.importorskip("torch")
+
+from raytracer2022_tpu.ops import sort as jsort  # noqa: E402
+from raytracer2022_tpu_torch.ops import sort as tsort  # noqa: E402
+from raytracer2022_tpu_torch.render import renderer as R  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import Schedule, TraceConfig, trace_regen  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 
 torch.set_num_threads(1)
 

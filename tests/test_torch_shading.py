@@ -8,19 +8,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from raytracer2022_tpu.ops import intersect as jx
-from raytracer2022_tpu.ops import lights as jlights
-from raytracer2022_tpu.ops import materials as jmat
-from raytracer2022_tpu.render import camera as jcam
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch.ops import intersect as tx
-from raytracer2022_tpu_torch.ops import lights as tlights
-from raytracer2022_tpu_torch.ops import materials as tmat
-from raytracer2022_tpu_torch.ops import sampling as sp
-from raytracer2022_tpu_torch.render import camera as tcam
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
+torch = pytest.importorskip("torch")
+
+from raytracer2022_tpu.ops import intersect as jx  # noqa: E402
+from raytracer2022_tpu.ops import lights as jlights  # noqa: E402
+from raytracer2022_tpu.ops import materials as jmat  # noqa: E402
+from raytracer2022_tpu.render import camera as jcam  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch.ops import intersect as tx  # noqa: E402
+from raytracer2022_tpu_torch.ops import lights as tlights  # noqa: E402
+from raytracer2022_tpu_torch.ops import materials as tmat  # noqa: E402
+from raytracer2022_tpu_torch.ops import sampling as sp  # noqa: E402
+from raytracer2022_tpu_torch.render import camera as tcam  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -8,26 +8,28 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import chip_smoke
-from raytracer2022_tpu.render.camera import make_camera as jax_make_camera
-from raytracer2022_tpu.render.film import tonemap_u8 as jax_tonemap_u8
-from raytracer2022_tpu.render.integrator import TraceConfig as JaxTraceConfig
-from raytracer2022_tpu.render.renderer import render_batch_regen as jax_render_batch_regen
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch import cli
-from raytracer2022_tpu_torch.render import renderer as R
-from raytracer2022_tpu_torch.render.camera import make_camera
-from raytracer2022_tpu_torch.render.film import tonemap_u8
-from raytracer2022_tpu_torch.render.integrator import (
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu.render.camera import make_camera as jax_make_camera  # noqa: E402
+from raytracer2022_tpu.render.film import tonemap_u8 as jax_tonemap_u8  # noqa: E402
+from raytracer2022_tpu.render.integrator import TraceConfig as JaxTraceConfig  # noqa: E402
+from raytracer2022_tpu.render.renderer import render_batch_regen as jax_render_batch_regen  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch import cli  # noqa: E402
+from raytracer2022_tpu_torch.render import renderer as R  # noqa: E402
+from raytracer2022_tpu_torch.render.camera import make_camera  # noqa: E402
+from raytracer2022_tpu_torch.render.film import tonemap_u8  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import (  # noqa: E402
     Schedule,
     TraceConfig,
     choose_schedule,
     trace_regen,
 )
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-from raytracer2022_tpu_torch.utils.imageio import read_png
+from raytracer2022_tpu_torch.scene import library as tlib  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
+from raytracer2022_tpu_torch.utils.imageio import read_png  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -187,6 +189,29 @@ def test_cli_cpu_writes_png(tmp_path):
     img = read_png(out)
     assert img.shape == (16, 16, 3) and img.dtype == np.uint8
     assert img.max() > 0
+
+
+def _scene_reached(**kwargs):
+    raise RuntimeError("the scene was built")
+
+
+@pytest.mark.parametrize("name", ["x.bmp", "x.tif", "x.ppm", "x"])
+def test_cli_refuses_an_unwritable_out_before_the_scene(tmp_path, monkeypatch, capsys, name):
+    """An --out that utils/imageio.py cannot write is a usage error when the
+    flags are parsed, not a ValueError after the render."""
+    monkeypatch.setitem(tlib.SCENES, "cornell_box", _scene_reached)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--scene", "cornell_box", "--device", "cpu", "--out", str(tmp_path / name), "--quiet"])
+    err = capsys.readouterr().err
+    assert e.value.code == 2 and "--out" in err and "(use .jpg, .jpeg, .png)" in err, err
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("name", ["x.jpg", "x.jpeg", "x.png", "x.JPG"])
+def test_cli_takes_a_writable_out(tmp_path, monkeypatch, name):
+    monkeypatch.setitem(tlib.SCENES, "cornell_box", _scene_reached)
+    with pytest.raises(RuntimeError, match="the scene was built"):
+        cli.main(["--scene", "cornell_box", "--device", "cpu", "--out", str(tmp_path / name), "--quiet"])
 
 
 def test_cli_without_gpu_is_an_error(tmp_path):

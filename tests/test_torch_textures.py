@@ -6,15 +6,16 @@ inputs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-import oracle
-from raytracer2022_tpu.ops import textures as jtex
-from raytracer2022_tpu.ops.shade import shade_from_rows, shade_table
-from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder
-from raytracer2022_tpu_torch.ops import textures as ttex
-from raytracer2022_tpu_torch.ops.shade import shade_for_mats
-from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder
+torch = pytest.importorskip("torch")
+
+import oracle  # noqa: E402
+from raytracer2022_tpu.ops import textures as jtex  # noqa: E402
+from raytracer2022_tpu.ops.shade import shade_from_rows, shade_table  # noqa: E402
+from raytracer2022_tpu.scene.builder import SceneBuilder as JaxBuilder  # noqa: E402
+from raytracer2022_tpu_torch.ops import textures as ttex  # noqa: E402
+from raytracer2022_tpu_torch.ops.shade import shade_for_mats  # noqa: E402
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -1,6 +1,7 @@
 """The port's measurement tools on the CPU: ``tools/perf.py`` and
-``tools/scaling.py`` (two gloo ranks), at tiny sizes; every tool needs a
-card unless asked for the CPU, and none imports JAX.  Their numbers here
+``tools/scaling.py`` (two gloo ranks), at tiny sizes, and the smoke's
+wwscene study; every tool needs a card unless asked for the CPU, and none
+imports JAX.  Their numbers here
 time the plain versions on this host; the card's come from a run on the card."""
 
 import json
@@ -10,12 +11,14 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
-from raytracer2022_tpu_torch.parallel.worker import SCALING_PROBE, build_scene
-from raytracer2022_tpu_torch.render.integrator import derive_seed, step_generator
-from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen
-from raytracer2022_tpu_torch.tools import flagship, golden, perf, scaling
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from raytracer2022_tpu_torch.parallel.worker import SCALING_PROBE, build_scene  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import derive_seed, step_generator  # noqa: E402
+from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen  # noqa: E402
+from raytracer2022_tpu_torch.tools import flagship, golden, perf, scaling  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -87,6 +90,21 @@ def test_scaling_on_two_gloo_ranks(capsys):
     assert rec["per_device_regen_iters"] == want
     assert rec["iters_max"] == max(want) and rec["iters_mean"] == sum(want) / 2
     assert 0 < rec["work_normalized_efficiency"] <= 1
+
+
+@pytest.mark.filterwarnings("ignore:invalid value encountered:RuntimeWarning")  # first_z: 0/0 when first == 2
+def test_wwscene_study_of_one_stream_on_both_sides(capsys):
+    """The same seeds on both sides: renders are deterministic per seed, so
+    the means are equal, the pooled z is 0, the sd ratio 1, and each of the
+    two renders lies +-1/sqrt(3) from their mean by the check's formula."""
+    rec = chip_smoke.wwscene_study((100, 101), (100, 101), first=2, factor=1, device="cpu")
+    assert rec["device_means"] == rec["cpu_means"] and rec["device_spp"] == rec["cpu_spp"] == 8
+    np.testing.assert_array_equal(rec["pooled_z"], 0.0)
+    np.testing.assert_allclose(rec["sd_ratio"], 1.0, rtol=1e-12)
+    np.testing.assert_allclose(np.abs(rec["single_z"]), 3 ** -0.5, rtol=1e-9)
+    assert rec["verdict"] == "draw" and rec["cpu_seeds"] == [100, 101]
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("cpu: ") and json.loads(out[-1])["wwscene_study"]["verdict"] == "draw"
 
 
 def test_tools_need_a_card_unless_asked_for_the_cpu():
