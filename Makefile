@@ -3,7 +3,7 @@
 
 PY_SOURCES = raytracer2022_tpu raytracer2022_tpu_torch tests tools bench.py __graft_entry__.py chip_smoke.py compare_forward.py compare_k1.py
 
-.PHONY: run run-torch fmt lint test test-full bench smoke ci native
+.PHONY: run run-torch fmt lint test test-full bench bench-torch smoke ci native
 
 run:
 	python -m raytracer2022_tpu.cli --scene wwscene --width 640 --height 360 --spp 100 --out output/output.jpg
@@ -32,6 +32,10 @@ test-full:
 
 bench:
 	python bench.py
+
+# bench.py's cells with the PyTorch port, on the CUDA card
+bench-torch:
+	python -m raytracer2022_tpu_torch.tools.bench
 
 # the port on one CUDA card: builds K1, drives every path, checks it
 smoke:

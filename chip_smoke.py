@@ -11,7 +11,8 @@ calls also give S2, bounce rays; S1 is camera rays, S3 final_scene's
 sphere tree), holds K1's visit counts against the reference walk, times K1
 at S1-S3 against its bound, holds K1 on the deepest tree the builder makes
 (phase ``deep``: 22 group levels, the kernel's stack) and renders it, runs
-``tools/perf.py`` on ``cornell_box``, and renders a stand-in ``final_scene``
+``tools/perf.py`` on ``cornell_box`` and ``tools/bench.py`` (``bench.py``'s
+cells) at a cut, and renders a stand-in ``final_scene``
 (media, image and noise textures, a 1000-sphere cluster tree) through
 ``render_sum_n``, ``cornell_box`` and every library scene that needs no
 file through ``cli.main``.  Phase ``assets`` writes stand-ins for the
@@ -888,9 +889,13 @@ FILE_FREE = ["random_scene", "two_spheres", "two_perlin_spheres", "simple_light"
 SMALL = 64  # library renders through the CLI: 64x64 x 8 spp
 SMALL_SPP = 8
 MAX_REL = 0.08  # card-vs-CPU and render-vs-render channel means (Monte-Carlo noise)
-CPU_SEEDS = 8  # card-vs-CPU checks: CPU renders, one per seed, give the seed-to-seed spread
+CPU_SEEDS = 8  # card-vs-CPU checks: CPU renders, one per seed, give the CPU mean ...
+REPLICATES = 32  # ... and with this many card renders at the CPU's samples (one launch) the seed-to-seed spread
 CARD_FACTOR = 16  # ... and the card renders once at this many times the samples
 MAX_Z = 5.0  # card-vs-CPU bound, in standard errors of the difference of means
+MAX_VAR_RATIO = 12.0  # the replicates' variance counts at most this many times the CPU renders' (F's 0.999
+# quantile at 31 and 63 over 7 degrees of freedom is 12.5 and 12.1): a card that scatters more cannot widen its bound
+REPLICATE_SEED = 1000  # the replicates' stream, apart from the card's and the CPU's render seeds
 EMIT = (1.5, 2.0, 2.5)
 
 
@@ -916,26 +921,109 @@ def _seed_means(scene, cam, cfg, seeds, spp: int) -> tuple:
     return np.array(means), n
 
 
-def card_vs_cpu(dev, label: str, build, cfg, card_seeds=(0,)) -> list:
+def _skew(m) -> np.ndarray:
+    """The skewness of each column of ``m`` (population moments)."""
+    return ((m - m.mean(axis=0)) ** 3).mean(axis=0) / m.std(axis=0) ** 3
+
+
+def pooled_check(cpu_means, rep_means, card_means, n_cpu: int, n_card: int) -> dict:
+    """The card-vs-CPU statistic of :func:`card_vs_cpu`, on numpy arrays.
+
+    ``cpu_means`` f64[C, 3] are the channel means of C CPU renders at
+    ``n_cpu`` samples, ``rep_means`` f64[K, 3] those of K card renders at the
+    same samples, ``card_means`` f64[..., 3] those of card renders at
+    ``n_card`` samples.  The variance of one render at ``n_cpu`` samples is
+    pooled from both sets, each taken about its own mean: ``var = ((C - 1)
+    var_cpu + (K - 1) min(var_rep, MAX_VAR_RATIO var_cpu)) / (C - 1 + K -
+    1)``, which is the CPU renders' own for K = 0 (or 1); the cap keeps a
+    card whose renders scatter more from widening its own bound past
+    ``MAX_VAR_RATIO``.  ``z = (card_means - mean_cpu) / se`` with ``se =
+    sqrt(var * (1/C + n_cpu/n_card))``; ``rep_z`` is the replicates' mean
+    (K renders at ``n_cpu`` samples) against ``mean_cpu`` in standard errors
+    ``sqrt(var * (1/C + 1/K))`` (nan for K = 0).  Returns ``z``, ``rep_z``,
+    ``sd`` (pooled), ``cpu_sd`` (the CPU renders' alone), ``var_ratio``
+    (``var_rep / var_cpu`` before the cap; nan below K = 2), ``se``,
+    ``cpu_mean``, ``min_rel_bias`` (``MAX_Z * se / mean_cpu``: the smallest
+    relative bias the check detects), ``skew`` (of the replicates' means;
+    nan below 3) and ``replicates`` (K)."""
+    cpu_means = np.asarray(cpu_means, np.float64)
+    rep_means = np.asarray(rep_means, np.float64).reshape(-1, cpu_means.shape[1])
+    c, k = len(cpu_means), len(rep_means)
+    nan = np.full(cpu_means.shape[1], np.nan)
+    m_cpu = cpu_means.mean(axis=0)
+    var_cpu = cpu_means.var(axis=0, ddof=1)
+    ss, dof, var_ratio = (c - 1) * var_cpu, c - 1, nan
+    if k > 1:
+        var_rep = rep_means.var(axis=0, ddof=1)
+        var_ratio = var_rep / np.maximum(var_cpu, 1e-300)
+        ss, dof = ss + (k - 1) * np.minimum(var_rep, MAX_VAR_RATIO * var_cpu), dof + k - 1
+    sd = np.sqrt(ss / dof)
+    se = sd * np.sqrt(1.0 / c + n_cpu / n_card)
+    rep_z = (rep_means.mean(axis=0) - m_cpu) / np.maximum(sd * np.sqrt(1.0 / c + 1.0 / k), 1e-12) if k else nan
+    return {"z": (np.asarray(card_means, np.float64) - m_cpu) / np.maximum(se, 1e-12), "rep_z": rep_z, "sd": sd,
+            "cpu_sd": np.sqrt(var_cpu), "var_ratio": var_ratio, "se": se, "cpu_mean": m_cpu,
+            "min_rel_bias": MAX_Z * se / np.maximum(np.abs(m_cpu), 1e-6),
+            "skew": _skew(rep_means) if k > 2 else nan, "replicates": k}
+
+
+def replicate_means(scene, cam, cfg, k: int, seed: int = REPLICATE_SEED) -> np.ndarray:
+    """``k`` independent renders of ``cfg`` at ``cfg.spp`` samples from one
+    launch -> their channel means, f64[k, 3].  The launch is
+    ``trace_regen`` under ``Schedule.QUOTA`` with ``k`` lanes a pixel of
+    ``cfg.spp`` samples each, where every lane runs exactly its own
+    ``cfg.spp`` samples of pixel ``l % n_pix``; so lanes ``r * n_pix`` to
+    ``(r + 1) * n_pix - 1`` are render ``r``.  Fails unless the launch ended
+    before the schedule's safety bound (a lane cut off there would have
+    fewer samples)."""
+    import torch
+
+    from raytracer2022_tpu_torch.render.integrator import Schedule, step_generator, trace_regen
+    from raytracer2022_tpu_torch.render.renderer import _regen_gen_rays
+
+    w, h = cfg.width, cfg.height
+    pix0 = torch.arange(k * w * h, device=scene.device) % (w * h)
+    with torch.no_grad():
+        rad, iters = trace_regen(scene, _regen_gen_rays(cam, w, h), pix0, cfg.spp,
+                                 step_generator(seed, 0, scene.device), cfg.trace_cfg(), spp_par=k,
+                                 schedule=Schedule.QUOTA, return_iters=True)
+    bound = (cfg.spp + 1) * cfg.max_depth + 2  # integrator._trace_lanes' max_iter
+    assert sum(iters.values()) < bound, f"replicates: the quota launch reached its bound {bound} ({iters})"
+    return _means(rad.reshape(3, k, h, w), cfg.spp).T
+
+
+def card_vs_cpu(dev, label: str, build, cfg, card_seeds=(0,), replicates: int = REPLICATES) -> list:
     """Hold the card's channel means against the CPU's (plain versions) on
-    one scene: ``CPU_SEEDS`` CPU renders at ``cfg`` give a mean and a
-    seed-to-seed standard deviation; the card renders once for each of
+    one scene: ``CPU_SEEDS`` CPU renders at ``cfg`` give a mean; their
+    seed-to-seed variance, pooled with that of ``replicates`` card renders
+    at ``cfg.spp`` drawn in one launch (:func:`replicate_means`), gives the
+    spread (:func:`pooled_check`); the card renders once for each of
     ``card_seeds`` at about ``CARD_FACTOR`` times the samples.  Fails unless
-    every channel of every card render agrees within ``MAX_Z`` standard
-    errors of the difference and within ``MAX_REL``.  ``build(device)``
-    returns ``(scene, camera)``.  Returns each card render's z."""
-    m_cards, n_card = _seed_means(*build(dev), cfg, card_seeds, cfg.spp * CARD_FACTOR)
+    every channel of every card render, and the replicates' mean, agrees
+    within ``MAX_Z`` standard errors of the difference, and each card render
+    within ``MAX_REL``.  ``build(device)`` returns ``(scene, camera)``.
+    Returns each card render's z."""
+    scene, cam = build(dev)
+    m_cards, n_card = _seed_means(scene, cam, cfg, card_seeds, cfg.spp * CARD_FACTOR)
+    reps = replicate_means(scene, cam, cfg, replicates)
     runs, n_cpu = _seed_means(*build("cpu"), cfg, range(100, 100 + CPU_SEEDS), cfg.spp)
-    m_cpu, sd = runs.mean(axis=0), runs.std(axis=0, ddof=1)
+    st = pooled_check(runs, reps, m_cards, n_cpu, n_card)
+    m_cpu = st["cpu_mean"]
+    print(f"{label} {cfg.width}x{cfg.height}: {st['replicates']} card replicates x {n_cpu} spp from one launch, "
+          f"their mean vs the CPU's z {st['rep_z'].round(2).tolist()}, their variance over the CPU seeds' "
+          f"{st['var_ratio'].round(2).tolist()} (counted at most {MAX_VAR_RATIO})", flush=True)
+    assert (np.abs(st["rep_z"]) < MAX_Z).all(), f"{label}: the card's replicates and the CPU disagree"
     zs = []
-    for seed, m_card in zip(card_seeds, m_cards):
-        z = (m_card - m_cpu) / np.maximum(sd * np.sqrt(1.0 / CPU_SEEDS + n_cpu / n_card), 1e-12)
+    for seed, m_card, z in zip(card_seeds, m_cards, st["z"]):
         rel = _rel(m_card, m_cpu)
         seed_note = f" seed {seed}" if len(card_seeds) > 1 else ""
         print(f"{label} {cfg.width}x{cfg.height}: card{seed_note} x {n_card} spp vs CPU {CPU_SEEDS} seeds x {n_cpu} "
               f"spp, channel means {m_card.round(4).tolist()} vs {m_cpu.round(4).tolist()} (rel "
-              f"{rel.round(4).tolist()}, z {z.round(2).tolist()}; CPU seed-to-seed sd {(sd / m_cpu).round(4).tolist()} "
-              f"rel; bounds |z| < {MAX_Z}, rel < {MAX_REL})", flush=True)
+              f"{rel.round(4).tolist()}, z {z.round(2).tolist()}; seed-to-seed sd rel "
+              f"{(st['sd'] / m_cpu).round(4).tolist()} pooled over the CPU seeds and {st['replicates']} card "
+              f"replicates x {n_cpu} spp (CPU seeds alone {(st['cpu_sd'] / m_cpu).round(4).tolist()}), replicates' "
+              f"skewness {st['skew'].round(2).tolist()}, "
+              f"smallest relative bias detected {st['min_rel_bias'].round(4).tolist()}; bounds |z| < {MAX_Z}, "
+              f"rel < {MAX_REL})", flush=True)
         assert np.isfinite(m_card).all(), f"{label}: non-finite card render"
         assert (np.abs(z) < MAX_Z).all() and (rel < MAX_REL).all(), f"{label}: card and CPU disagree"
         zs.append(z.tolist())
@@ -1034,6 +1122,7 @@ def phase_library(dev, smi) -> dict:
 WW_WIDTH, WW_HEIGHT, WW_SPP = 640, 360, 100
 WW_CHECK = (64, 36, 8)  # card-vs-CPU check of wwscene: width, height, spp ...
 WW_CHECK_CARD_SEEDS = (0, 1)  # ... with two card renders, each held to the bound
+WW_CHECK_REPLICATES = 64  # ... and this many card replicates: its 8-spp means are heavy-tailed (PERF.md §6)
 WW_CHECK_SHUTTLE = (24, 12)  # ... with a 576-triangle Shuttle, which the CPU's plain version walks by brute force
 FROM_FILES_SMALL = ("earth", "obj_uv_demo", "final_scene")  # rendered from the files at SMALL x SMALL
 
@@ -1061,11 +1150,16 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
     the CPU each of ``cpu_seeds``.  Prints and returns, per
     channel: ``pooled_z``, the pooled ``device`` mean against the pooled
     CPU mean in standard errors from each side's own seed-to-seed variance;
-    ``single_z``, each ``device`` render against the CPU mean as the check
-    computes it (the CPU's variance only); ``single_z_first``, the same
-    against the mean of the first ``first`` CPU seeds (the check's own
-    CPU side when those are seeds 100-107); ``first_z``, that mean against
-    the whole CPU mean; ``device_sd`` and ``cpu_sd``, each side's
+    ``single_z``, each ``device`` render against the CPU mean from the
+    CPU's variance only (the check's statistic without replicates);
+    ``single_z_first``, the same against the mean of the first ``first``
+    CPU seeds (the check's own CPU side when those are seeds 100-107);
+    ``pooled_sd_z``, each ``device`` render against that mean as the check
+    computes it (:func:`pooled_check`: the variance pooled from those
+    ``first`` CPU renders and ``WW_CHECK_REPLICATES`` ``device`` renders at
+    the CPU's samples from one launch), ``pooled_sd`` its sd, ``var_ratio``
+    and ``rep_z`` its replicates' variance ratio and mean's z; ``first_z``,
+    that mean against the whole CPU mean; ``device_sd`` and ``cpu_sd``, each side's
     seed-to-seed sd, ``device_skew`` and ``cpu_skew`` the skewness of its
     renders' channel means (``device_means``, ``cpu_means``), and
     ``first_sd_ratio`` the first ``first`` CPU seeds' sd over ``cpu_sd``
@@ -1094,7 +1188,9 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
         write_stand_in_assets(tmp, shuttle=WW_CHECK_SHUTTLE)
         build = ww_check_build(tmp)
         t0 = time.perf_counter()
-        m_dev, n_dev = _seed_means(*build(dev), cfg, card_seeds, n * factor)
+        scene, cam = build(dev)
+        m_dev, n_dev = _seed_means(scene, cam, cfg, card_seeds, n * factor)
+        reps = replicate_means(scene, cam, cfg, WW_CHECK_REPLICATES)
         dev_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         m_cpu, n_cpu = _seed_means(*build("cpu"), cfg, cpu_seeds, n)
@@ -1108,17 +1204,17 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
     mean_first, sd_first = m_cpu[:first].mean(axis=0), m_cpu[:first].std(axis=0, ddof=1)
     single_z_first = (m_dev - mean_first) / (sd_first * np.sqrt(1.0 / first + n_cpu / n_dev))
     first_z = (mean_first - mean_cpu) / (sd_cpu * np.sqrt(1.0 / first - 1.0 / c))
-
-    def skew(m):
-        return ((m - m.mean(axis=0)) ** 3).mean(axis=0) / m.std(axis=0) ** 3
+    pooled = pooled_check(m_cpu[:first], reps, m_dev, n_cpu, n_dev)
 
     result = {
         "setup": f"wwscene {w}x{h}, depth {DEPTH}, Shuttle {WW_CHECK_SHUTTLE}, stand-in assets",
         "device": line, "device_seeds": card_seeds, "device_spp": n_dev, "cpu_seeds": cpu_seeds, "cpu_spp": n_cpu,
         "device_mean": mean_dev.tolist(), "cpu_mean": mean_cpu.tolist(), "cpu_first_mean": mean_first.tolist(),
         "pooled_z": pooled_z.tolist(), "single_z": single_z.tolist(), "single_z_first": single_z_first.tolist(),
+        "pooled_sd_z": pooled["z"].tolist(), "pooled_sd": pooled["sd"].tolist(), "replicates": WW_CHECK_REPLICATES,
+        "var_ratio": pooled["var_ratio"].tolist(), "rep_z": pooled["rep_z"].tolist(),
         "first_z": first_z.tolist(), "device_sd": np.sqrt(var_dev).tolist(), "cpu_sd": sd_cpu.tolist(),
-        "device_skew": skew(m_dev).tolist(), "cpu_skew": skew(m_cpu).tolist(),
+        "device_skew": _skew(m_dev).tolist(), "cpu_skew": _skew(m_cpu).tolist(),
         "first_sd_ratio": (sd_first / sd_cpu).tolist(),
         "sd_ratio": (np.sqrt(var_dev) / (sd_cpu * np.sqrt(n_cpu / n_dev))).tolist(),
         "verdict": "draw" if (np.abs(pooled_z) < 3.0).all() else "bias",
@@ -1234,7 +1330,8 @@ def phase_assets(dev, smi) -> dict:
         with open(os.path.join(check_dir, "obj", "Shuttle.obj"), "w") as f:
             f.write(shuttle_obj_text(*WW_CHECK_SHUTTLE))
 
-        ww_z = card_vs_cpu(dev, "wwscene", ww_check_build(check_dir), cfg, card_seeds=WW_CHECK_CARD_SEEDS)
+        ww_z = card_vs_cpu(dev, "wwscene", ww_check_build(check_dir), cfg, card_seeds=WW_CHECK_CARD_SEEDS,
+                           replicates=WW_CHECK_REPLICATES)
         small = {}
         for name in FROM_FILES_SMALL:
             path = os.path.join(tmp, f"{name}.jpg")
@@ -1610,100 +1707,124 @@ def phase_perf(smi) -> dict:
     return rec
 
 
-DIFF_SIZE, DIFF_SPP_PAR, DIFF_SPP_SEQ = 256, 2, 32  # bench.py's fwd+bwd cell: 256x256 x 64 spp
-MESH_DIFF_SIZE, MESH_DIFF_SPP_PAR, MESH_DIFF_SPP_SEQ = 128, 4, 8  # bench.py's OBJ fwd+bwd cell
-FIT_SIZE, FIT_SPP, FIT_DEPTH = 64, 32, 8  # bench.py's fit step
-DIFF_REPS = 3
+BENCH_CUT = ("--size-div", "4", "--spp-div", "16", "--reps", "1")  # phase bench: bench.py's cells in ~30 s
 
 
-def _median_s(fn, reps: int = DIFF_REPS) -> float:
-    """Median wall seconds of ``fn()`` after one warm-up, each run ended by
-    ``torch.cuda.synchronize()``."""
+def check_bench_line(line: dict, keys) -> None:
+    """``tools/bench.py``'s last line: exactly ``keys``, every number finite
+    and positive, each ``*_spread`` around its ``*_Mpaths_s``."""
+    assert list(line) == list(keys), f"bench: keys {list(line)}"
+    for key, value in line.items():
+        if key.endswith("_spread"):
+            lo, hi = value
+            assert 0 < lo <= line[key.replace("spread", "Mpaths_s")] <= hi, f"bench: {key} {value}"
+        elif key not in ("metric", "unit", "vs_baseline_estimate", "cut"):
+            assert np.isfinite(value) and value > 0, f"bench: {key} = {value}"
+
+
+def phase_bench(dev, smi) -> dict:
+    """``raytracer2022_tpu_torch.tools.bench`` at ``BENCH_CUT``: its last
+    line has ``bench.py``'s keys and ``cut`` (:func:`check_bench_line`);
+    K1 ran in the two ``wwscene`` cells and in no other.  Then those two
+    cells, the ones that run K1, at ``bench.py``'s own shapes through the
+    tool's functions (a warm-up and one timed call each), with K1 held
+    against its plain version on the warm-up's first two K1 calls (camera
+    rays, then mostly bounce rays: 65,536 rays each).  -> ``{"line": the
+    last line, "k1": K1's launches in the timed call of each full-shape
+    cell, "parity": each parity call's report, "seconds": each full-shape
+    cell's timed call}``."""
+    import io
+    import json
+    import os
+    import tempfile
+
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.scene.library import SCENES
+    from raytracer2022_tpu_torch.tools import bench
+
+    with tempfile.TemporaryDirectory() as tmp, source_dir_env(os.path.join(tmp, "stand-ins")) as src:
+        write_stand_in_assets(src)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(list(BENCH_CUT))
+        print(buf.getvalue(), end="", flush=True)
+        lines = buf.getvalue().strip().splitlines()
+        details, line = [json.loads(x) for x in lines[1:-1]], json.loads(lines[-1])
+        assert rc == 0 and [d["cell"] for d in details] == [c.key for c in bench.CELLS], "bench: cells missing"
+        check_bench_line(line, [*bench.KEYS, "cut"])
+        for d in details:
+            launches = d["k1_launches"]
+            assert (launches > 0) == (d["scene"] == "wwscene"), f"bench: {d['cell']} K1 launches {launches}"
+
+        b = SCENES["wwscene"](device=dev)
+        cam = make_camera(**b.camera_kwargs, device=dev)
+        (tree,) = [t for t in b.scene.bvh8 if t is not None]
+        obj = bench.FORWARD[-1]._replace(reps=1)
+        fwd_bwd = bench.FWD_BWD_OBJ._replace(reps=1)
+        fns = {obj.key: (obj, bench.forward_fn(b, cam, obj)),
+               fwd_bwd.key: (fwd_bwd, bench.fwd_bwd_fn(b, cam, fwd_bwd, ("textures.color",),
+                                                       *bench.regen_trips(b, cam, fwd_bwd)))}
+        k1, parity, seconds = {}, {}, {}
+        for key, (cell, fn) in fns.items():
+            assert cell.scene == "wwscene", cell
+            recs = []
+            kept = capture_k1(lambda: recs.append(bench.measure(cell, fn, dev)[0]), (0, 1))
+            (rec,) = recs
+            k1[key], seconds[key] = rec["k1_launches"], rec["seconds"][0]
+            assert k1[key] > 0, f"bench {key} at its full shape never launched K1"
+            for call, ((o, d, tm, t_init), _) in enumerate(kept):
+                parity[f"{key} call {call}"] = rep = check_parity(TRIANGLE, *run_both(tree, TRIANGLE, o, d, tm, t_init))
+                print(f"K1 parity bench {key} {cell.width}x{cell.height} x {cell.spp_par} x {cell.spp_seq}, K1 call "
+                      f"{call} of its warm-up ({tm.shape[0]} rays): hits {rep['hits']}, max|dt| "
+                      f"{rep['max_abs_err']:.3g}, ids equal {rep['id_match']:.5f}", flush=True)
+            assert len(kept) == 2 and kept[0][0][2].shape[0] == cell.width * cell.height * cell.spp_par, kept
+            print(f"bench {key} at bench.py's shape {cell.width}x{cell.height} x {cell.spp_par} x {cell.spp_seq}: "
+                  f"{seconds[key]} s a call, {rec['paths'] / seconds[key] / 1e6} Mpaths/s, K1 launches {k1[key]}, "
+                  f"assets {src} ({smi})", flush=True)
+    return {"line": line, "k1": k1, "parity": parity, "seconds": seconds}
+
+
+def _fwd_bwd_cell(label: str, bundle, cam, cell, wrt, smi: str) -> dict:
+    """One of ``bench.py``'s fwd+bwd cells through ``tools/bench.py``'s own
+    functions: the trip counts (``regen_trips``), the median fwd+bwd step
+    with its peak memory and K1 launches (``measure`` of ``fwd_bwd_fn``,
+    gradients with respect to ``wrt``), and beside it the forward alone
+    under ``torch.no_grad()`` over the same trip counts (its time, K1
+    launches and the share of samples it completed)."""
     import time
 
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return sorted(times)[len(times) // 2]
-
-
-def _fwd_bwd_cell(label: str, scene, cam, size: int, spp_par: int, spp_seq: int, wrt, smi: str) -> dict:
-    """One fwd+bwd cell: the trip counts from ``regen_iters_estimate``
-    (split drain), the median fwd+bwd step (render, mean(img / cnt),
-    ``torch.autograd.grad`` with respect to ``wrt``: "materials.param" and
-    "textures.color"), the forward alone under ``torch.no_grad()``, peak
-    memory, and K1 launches per step (forward plus recompute) against a
-    forward alone."""
-    import time
-
-    import torch
-
-    from raytracer2022_tpu_torch.ops import bvh8
-    from raytracer2022_tpu_torch.parallel.mesh import with_params
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
-    from raytracer2022_tpu_torch.render.renderer import regen_iters_estimate, render_batch_regen_diff
+    from raytracer2022_tpu_torch.render.renderer import render_batch_regen_diff
+    from raytracer2022_tpu_torch.tools import bench
 
-    cfg = TraceConfig(max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+    dev = bundle.scene.device
     t0 = time.perf_counter()
-    n_iters, n_drain = regen_iters_estimate(scene, cam, size, size, spp_par, spp_seq, cfg, split_drain=True)
-    torch.cuda.synchronize()
+    n_iters, n_drain = bench.regen_trips(bundle, cam, cell)
     est_s = time.perf_counter() - t0
+    step, grads = bench.measure(cell, bench.fwd_bwd_fn(bundle, cam, cell, wrt, n_iters, n_drain), dev,
+                                peak_memory=True)
+    tcfg = TraceConfig(max_depth=cell.depth, background=bundle.background)
 
-    def render(s, seed):
-        img, cnt = render_batch_regen_diff(s, cam, seed, size, size, spp_par, spp_seq, n_iters, cfg, n_drain=n_drain)
-        return torch.mean(img / torch.clamp(cnt, min=1)[None]), cnt
-
-    out = {}
-
-    def step(seed=0):
-        leaves = {"materials.param": scene.materials.param.clone(), "textures.color": scene.textures.color.clone()}
-        for w in wrt:
-            leaves[w].requires_grad_()
-        loss, cnt = render(with_params(scene, leaves["materials.param"], leaves["textures.color"]), seed)
-        torch.cuda.synchronize()
-        t_b = time.perf_counter()
-        grads = torch.autograd.grad(loss, [leaves[w] for w in wrt])
-        torch.cuda.synchronize()
-        out.update(bwd_s=time.perf_counter() - t_b, grads=grads, cnt=cnt)
-
-    def forward():
+    def forward(seed):
         with torch.no_grad():
-            render(scene, 0)
+            cnt = render_batch_regen_diff(bundle.scene, cam, seed, cell.width, cell.height, cell.spp_par,
+                                          cell.spp_seq, n_iters, tcfg, n_drain=n_drain)[1]
+        return float(cnt.sum())
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t_fb = _median_s(step)
-    peak = torch.cuda.max_memory_allocated() - base
-    t_fwd = _median_s(forward)
-    # K1 launches of one step and of one forward, counted from 0 around each
-    bvh8.LAUNCHES = 0
-    step(DIFF_REPS + 1)
-    k1_step = bvh8.LAUNCHES
-    bvh8.LAUNCHES = 0
-    forward()
-    k1_fwd = bvh8.LAUNCHES
-    grads = [g.cpu().numpy() for g in out["grads"]]
-    cnt = out["cnt"].cpu().numpy()
-    paths = size * size * spp_par * spp_seq
+    t_fwd, _, _, k1_fwd, done = bench.median_time(forward, cell.reps, dev)
+    t_fb, paths = step["seconds"][0], step["paths"]
     rec = {"n_iters": n_iters, "n_drain": n_drain, "estimate_s": est_s, "fwd_bwd_s": t_fb, "fwd_s": t_fwd,
-           "bwd_s": out["bwd_s"], "fwd_bwd_mpaths": paths / t_fb / 1e6, "fwd_mpaths": paths / t_fwd / 1e6,
-           "fwd_bwd_over_fwd": t_fb / t_fwd, "peak_gib": peak / 2**30, "k1_per_step": k1_step,
-           "k1_per_forward": k1_fwd, "completed": float(cnt.sum()) / paths, "grads": grads}
-    assert all(np.isfinite(g).all() for g in grads), f"{label}: non-finite gradients"
-    print(f"fwd+bwd {label} {size}x{size} x {spp_par} lanes x {spp_seq} seq, depth {DEPTH}: n_iters {n_iters} + "
-          f"drain {n_drain} (estimate {est_s:.2f} s); step {t_fb:.3f} s ({rec['fwd_bwd_mpaths']:.3f} Mpaths/s, "
-          f"backward {out['bwd_s']:.3f} s), forward alone {t_fwd:.3f} s ({rec['fwd_mpaths']:.3f} Mpaths/s), "
-          f"fwd+bwd / fwd {rec['fwd_bwd_over_fwd']:.2f}; peak memory {rec['peak_gib']:.3f} GiB above "
-          f"{base / 2**30:.3f}; K1 launches per step {k1_step} (forward alone {k1_fwd}); "
-          f"samples completed {100 * rec['completed']:.2f}% ({smi})", flush=True)
+           "fwd_bwd_mpaths": paths / t_fb / 1e6, "fwd_mpaths": paths / t_fwd / 1e6, "fwd_bwd_over_fwd": t_fb / t_fwd,
+           "peak_gib": step["peak_gib_above_base"], "k1_per_step": step["k1_launches"], "k1_per_forward": k1_fwd,
+           "completed": done / paths, "grads": [g.cpu().numpy() for g in grads]}
+    print(f"fwd+bwd {label} {cell.width}x{cell.height} x {cell.spp_par} lanes x {cell.spp_seq} seq, depth "
+          f"{cell.depth}: n_iters {n_iters} + drain {n_drain} (estimate {est_s:.2f} s); step {t_fb:.3f} s "
+          f"({rec['fwd_bwd_mpaths']:.3f} Mpaths/s; median of {cell.reps}), forward alone {t_fwd:.3f} s "
+          f"({rec['fwd_mpaths']:.3f} Mpaths/s), fwd+bwd / fwd {rec['fwd_bwd_over_fwd']:.2f}; peak memory "
+          f"{rec['peak_gib']} GiB above what was allocated before; K1 launches per step {rec['k1_per_step']} "
+          f"(forward alone {k1_fwd}); samples completed {100 * rec['completed']:.2f}% ({smi})", flush=True)
     return rec
 
 
@@ -1719,13 +1840,13 @@ def phase_diff(dev, smi) -> dict:
 
     from raytracer2022_tpu_torch import fit
     from raytracer2022_tpu_torch.ops import bvh8
-    from raytracer2022_tpu_torch.parallel.mesh import fit_step_fn
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
-    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen_diff
+    from raytracer2022_tpu_torch.render.renderer import render_batch_regen_diff
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
-    from raytracer2022_tpu_torch.scene.library import cornell_box
+    from raytracer2022_tpu_torch.scene.library import SceneBundle, cornell_box
     from raytracer2022_tpu_torch.scene.types import RECT
+    from raytracer2022_tpu_torch.tools import bench
 
     out = {}
     # 1. K1 against the cluster walk: one gradient convention on the card
@@ -1782,11 +1903,10 @@ def phase_diff(dev, smi) -> dict:
     np.testing.assert_allclose(g, fd, rtol=2e-2, atol=1e-5)
     assert g > 0
 
-    # 3. fwd+bwd at full width on cornell_box
+    # 3. bench.py's fwd+bwd cell on cornell_box
     bundle = cornell_box(device=dev)
     corn_cam = make_camera(**bundle.camera_kwargs, device=dev)
-    corn = _fwd_bwd_cell("cornell_box", bundle.scene, corn_cam, DIFF_SIZE, DIFF_SPP_PAR, DIFF_SPP_SEQ,
-                         ("materials.param", "textures.color"), smi)
+    corn = _fwd_bwd_cell("cornell_box", bundle, corn_cam, bench.FWD_BWD, ("materials.param", "textures.color"), smi)
     sc = bundle.scene
     tex = sc.materials.tex.cpu().numpy()
     light_tex = int(tex[int(np.argmax(sc.materials.kind.cpu().numpy() == 3))])
@@ -1800,25 +1920,20 @@ def phase_diff(dev, smi) -> dict:
     assert (g_color[:, light_tex] > 0).all() and (g_color[:, floor_tex] > 0).all(), "cornell gradients not > 0"
     out["cornell"] = corn
 
-    # 4. fwd+bwd on the stand-in mesh through K1, its counts read around it
+    # 4. bench.py's OBJ fwd+bwd shape on the stand-in mesh through K1, its counts read around it
     b = SceneBuilder()
     cam_kw = stand_in_mesh_scene(b)
-    mesh = b.finalize(device=dev)
+    mesh = SceneBundle(b.finalize(device=dev), cam_kw, (0.0, 0.0, 0.0), name="stand-in mesh")
     cam = make_camera(**cam_kw, device=dev)
-    out["mesh"] = rec = _fwd_bwd_cell("stand-in mesh", mesh, cam, MESH_DIFF_SIZE, MESH_DIFF_SPP_PAR,
-                                      MESH_DIFF_SPP_SEQ, ("textures.color",), smi)
+    out["mesh"] = rec = _fwd_bwd_cell("stand-in mesh", mesh, cam, bench.FWD_BWD_OBJ._replace(scene=mesh.name),
+                                      ("textures.color",), smi)
     assert rec["k1_per_step"] > rec["k1_per_forward"] > 0, "the mesh fwd+bwd did not launch K1 in its recompute"
 
-    # 5. the fit step at bench.py's size (fixed-depth trace)
-    fit_cfg = RenderConfig(width=FIT_SIZE, height=FIT_SIZE, spp=FIT_SPP, max_depth=FIT_DEPTH,
-                           background=bundle.background)
-    step = fit_step_fn(fit_cfg)
-    target = torch.zeros((3, FIT_SIZE, FIT_SIZE), device=dev)
-    losses = []
-    out["fit_step_s"] = _median_s(lambda: losses.append(float(step(bundle.scene, corn_cam, target, len(losses))[2])))
-    assert np.isfinite(losses).all()
-    print(f"fit step {FIT_SIZE}x{FIT_SIZE} x {FIT_SPP} spp, depth {FIT_DEPTH}: median {out['fit_step_s']:.3f} s "
-          f"of {DIFF_REPS} after a warm-up ({smi})", flush=True)
+    # 5. bench.py's fit step (fixed-depth trace)
+    cell = bench.FIT_STEP
+    out["fit_step_s"] = bench.median_time(bench.fit_fn(bundle, corn_cam, cell), cell.reps, dev)[0]
+    print(f"fit step {cell.width}x{cell.height} x {cell.spp_seq} spp, depth {cell.depth}: median "
+          f"{out['fit_step_s']:.3f} s of {cell.reps} after a warm-up ({smi})", flush=True)
 
     # 6. the fit demo through the regeneration integrator
     t0 = time.perf_counter()
@@ -1894,6 +2009,8 @@ def phase_multi(dev, smi, mesh_means, one_device_fwd_bwd_s: float) -> dict:
 
     import torch
 
+    from raytracer2022_tpu_torch.tools.bench import FWD_BWD as cell
+
     n_cards = torch.cuda.device_count()
     out = {"cards": n_cards}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1905,15 +2022,16 @@ def phase_multi(dev, smi, mesh_means, one_device_fwd_bwd_s: float) -> dict:
               f"(time-sliced on one card, not scaling across cards) ({smi})", flush=True)
 
         res = _launch(2, "fit_regen", "cuda:0", "gloo", os.path.join(tmp, "fit.npz"), "--scene", "cornell_box",
-                      "--width", str(DIFF_SIZE), "--height", str(DIFF_SIZE), "--spp", str(DIFF_SPP_PAR * DIFF_SPP_SEQ),
-                      "--depth", str(DEPTH), "--steps", str(MULTI_FIT_STEPS))
+                      "--width", str(cell.width), "--height", str(cell.height), "--spp",
+                      str(cell.spp_par * cell.spp_seq), "--depth", str(cell.depth), "--steps", str(MULTI_FIT_STEPS))
         assert all(np.array_equal(r["params"], res[0]["params"]) for r in res), "fit: the ranks' parameters differ"
         assert all(np.array_equal(r["loss"], res[0]["loss"]) for r in res) and np.isfinite(res[0]["loss"]).all()
         step_s = res[0]["step_seconds"].tolist()
         out["fit"] = fit = {"regen_iters": int(res[0]["regen_iters"]), "step_seconds": step_s,
                             "median_s": float(np.median(step_s[1:])), "loss": res[0]["loss"].tolist(),
                             "k1": [int(r["k1_launches"]) for r in res], "one_device_fwd_bwd_s": one_device_fwd_bwd_s}
-        print(f"multi fit: cornell_box {DIFF_SIZE}x{DIFF_SIZE} x {DIFF_SPP_PAR * DIFF_SPP_SEQ} spp, depth {DEPTH}, "
+        print(f"multi fit: cornell_box {cell.width}x{cell.height} x {cell.spp_par * cell.spp_seq} spp, depth "
+              f"{cell.depth}, "
               f"2 ranks on cuda:0 over gloo, regen_iters {fit['regen_iters']}: step median {fit['median_s']:.3f} s "
               f"of {MULTI_FIT_STEPS - 1} after a warm-up (all {np.round(step_s, 3).tolist()}), losses "
               f"{np.round(fit['loss'], 6).tolist()}, parameters bit-identical on both ranks after every step; "
@@ -2042,6 +2160,7 @@ def main(argv=None) -> int:
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
     from raytracer2022_tpu_torch.utils.imageio import read_png
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2169,6 +2288,9 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     perf_rec = phase_perf(smi)
     print(f"[phase perf: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
+    bench_rec = phase_bench(dev, smi)
+    print(f"[phase bench: {time.perf_counter() - t_phase:.1f} s]", flush=True)
 
     # --- phase 5: cornell_box through the CLI
     before = bvh8_mod.LAUNCHES
@@ -2216,7 +2338,7 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     multi = phase_multi(dev, smi, mesh_means, diff["cornell"]["fwd_bwd_s"])
     print(f"[phase multi: {time.perf_counter() - t_phase:.1f} s]", flush=True)
-    diff_keys = ("n_iters", "n_drain", "estimate_s", "fwd_bwd_s", "bwd_s", "fwd_s", "fwd_bwd_mpaths", "fwd_mpaths",
+    diff_keys = ("n_iters", "n_drain", "estimate_s", "fwd_bwd_s", "fwd_s", "fwd_bwd_mpaths", "fwd_mpaths",
                  "fwd_bwd_over_fwd", "peak_gib", "k1_per_step", "k1_per_forward", "completed")
     print(json.dumps({"summary": {
         "mesh_mpaths": mpaths_mesh, "cli_cornell_mpaths": mpaths_cli,
@@ -2227,6 +2349,7 @@ def main(argv=None) -> int:
         "fwd_bwd_mesh": {k: diff["mesh"][k] for k in diff_keys},
         "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "perf": perf_rec,
         "deep_render_s": deep["render_s"],
+        "bench": bench_rec["line"],
         "wwscene": {k: assets[k] for k in ("seconds", "mpaths", "wall_mpaths", "spp", "launches", "decode_s", "small_s")},
         "flagship": {k: flag[k] for k in ("runs", "mae", "launches")},
         "card": smi,
@@ -2260,11 +2383,13 @@ def main(argv=None) -> int:
                              "mesh_sharded_rank0": multi["world2_gloo"]["k1"][0],
                              "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1],
                              "deep_mesh": deep["launches"], "wwscene": assets["launches"],
-                             "flagship": flag["launches"]},
+                             "flagship": flag["launches"], "bench_obj": bench_rec["k1"]["obj"],
+                             "bench_fwd_bwd_obj": bench_rec["k1"]["fwd_bwd_obj"]},
         "launches_per_mesh_render": mesh_launches,
         "launches_per_fwd_bwd_step": diff["mesh"]["k1_per_step"],
         "max_abs_err": max([r["max_abs_err"] for r in reports.values()] + [deep["max_abs_err"]]
-                           + [r["max_abs_err"] for r in flag["parity"].values()]),
+                           + [r["max_abs_err"] for r in flag["parity"].values()]
+                           + [r["max_abs_err"] for r in bench_rec["parity"].values()]),
         "ms": s1["ms"],
         "plain_ms": p_ms,
         "bound_ms": s1["bound_ms"],
@@ -2279,6 +2404,7 @@ def main(argv=None) -> int:
         "flagship_run": {"launches": flag["launches"], "spp": flag["runs"]["whole"]["spp"],
                          "rays_per_launch": flag["rays"]},
     }]
+    print(f"[smoke total: {time.perf_counter() - t_start:.1f} s]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

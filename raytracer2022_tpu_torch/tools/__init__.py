@@ -1,7 +1,8 @@
-"""Tools beside the package: :mod:`.perf` (per-scene throughput),
-:mod:`.scaling` (the sharded render against one rank), :mod:`.flagship`
-(the reference's whole workload, restart-safe) and :mod:`.golden` (renders
-against the reference's committed images)."""
+"""Tools beside the package: :mod:`.bench` (``bench.py``'s cells),
+:mod:`.perf` (per-scene throughput), :mod:`.scaling` (the sharded render
+against one rank), :mod:`.flagship` (the reference's whole workload,
+restart-safe) and :mod:`.golden` (renders against the reference's
+committed images)."""
 
 from __future__ import annotations
 

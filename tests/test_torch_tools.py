@@ -18,7 +18,7 @@ import chip_smoke  # noqa: E402
 from raytracer2022_tpu_torch.parallel.worker import SCALING_PROBE, build_scene  # noqa: E402
 from raytracer2022_tpu_torch.render.integrator import derive_seed, step_generator  # noqa: E402
 from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_batch_regen  # noqa: E402
-from raytracer2022_tpu_torch.tools import flagship, golden, perf, scaling  # noqa: E402
+from raytracer2022_tpu_torch.tools import bench, flagship, golden, perf, scaling  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -93,15 +93,20 @@ def test_scaling_on_two_gloo_ranks(capsys):
 
 
 @pytest.mark.filterwarnings("ignore:invalid value encountered:RuntimeWarning")  # first_z: 0/0 when first == 2
-def test_wwscene_study_of_one_stream_on_both_sides(capsys):
+def test_wwscene_study_of_one_stream_on_both_sides(capsys, monkeypatch):
     """The same seeds on both sides: renders are deterministic per seed, so
     the means are equal, the pooled z is 0, the sd ratio 1, and each of the
-    two renders lies +-1/sqrt(3) from their mean by the check's formula."""
+    two renders lies +-1/sqrt(3) from their mean by the CPU-only formula;
+    the check's pooled sd rescales those z's by the CPU sd over itself."""
+    monkeypatch.setattr(chip_smoke, "WW_CHECK_REPLICATES", 2)
     rec = chip_smoke.wwscene_study((100, 101), (100, 101), first=2, factor=1, device="cpu")
     assert rec["device_means"] == rec["cpu_means"] and rec["device_spp"] == rec["cpu_spp"] == 8
     np.testing.assert_array_equal(rec["pooled_z"], 0.0)
     np.testing.assert_allclose(rec["sd_ratio"], 1.0, rtol=1e-12)
     np.testing.assert_allclose(np.abs(rec["single_z"]), 3 ** -0.5, rtol=1e-9)
+    assert rec["replicates"] == 2
+    np.testing.assert_allclose(np.array(rec["pooled_sd_z"]) * rec["pooled_sd"],
+                               np.array(rec["single_z_first"]) * rec["cpu_sd"], rtol=1e-9)
     assert rec["verdict"] == "draw" and rec["cpu_seeds"] == [100, 101]
     out = capsys.readouterr().out.strip().splitlines()
     assert out[0].startswith("cpu: ") and json.loads(out[-1])["wwscene_study"]["verdict"] == "draw"
@@ -118,11 +123,14 @@ def test_tools_need_a_card_unless_asked_for_the_cpu():
         flagship.main(["--spp", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         golden.main(["--scene", "cornell_box_book"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
 
 
 def test_tools_import_neither_jax_nor_the_jax_package():
     code = ("import sys; import raytracer2022_tpu_torch.tools.perf, raytracer2022_tpu_torch.tools.scaling, "
-            "raytracer2022_tpu_torch.tools.flagship, raytracer2022_tpu_torch.tools.golden; "
+            "raytracer2022_tpu_torch.tools.flagship, raytracer2022_tpu_torch.tools.golden, "
+            "raytracer2022_tpu_torch.tools.bench; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'raytracer2022_tpu', 'tools')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
