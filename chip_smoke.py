@@ -22,7 +22,12 @@ them with the port's decoder, renders the JAX CLI's default invocation
 (``wwscene``, 640x360 x 100 spp, depth 50, K1 on the OBJ mesh's tree)
 through ``cli.main`` into a JPEG, holds it card against CPU, and renders
 ``earth``, ``obj_uv_demo`` and ``final_scene`` from the files.  Phase
-``flagship`` renders the reference's own frame, ``wwscene`` at 2560x1440,
+``installed`` builds a wheel of the checkout with pip, installs it into a
+temporary directory and runs its ``rt2022-torch`` command from outside the
+checkout at the same invocation: K1 and the host runtime build from the
+sources the wheel ships into a per-user cache directory, nothing is
+written under the install directory, and the JPEG matches phase
+``assets``'.  Phase ``flagship`` renders the reference's own frame, ``wwscene`` at 2560x1440,
 depth 50, through ``tools/flagship.py``: K1 against its plain version on a
 full-frame strip's rays, 4 spp in two chunks, and the same run interrupted
 and resumed, byte-equal to the uninterrupted image.  It runs
@@ -48,6 +53,13 @@ import contextlib
 import math
 
 import numpy as np
+
+from raytracer2022_tpu_torch.tools.standins import (
+    earth_stand_in,
+    shuttle_obj_text,
+    source_dir_env,
+    write_stand_in_assets,
+)
 
 # stand-in mesh: a torus standing in for the Shuttle mesh (13,079 triangles)
 TORUS_CENTER = (278.0, 200.0, 300.0)
@@ -116,106 +128,6 @@ def two_rect_scene(builder) -> dict:
     b.add_light(light)
     b.rect_xz(-4, 4, -4, 4, 0.0, b.lambertian((0.6, 0.4, 0.3)))
     return dict(lookfrom=(0, 2, -8), lookat=(0, 1, 0), vup=(0, 1, 0), vfov=40, aspect_ratio=1.0)
-
-
-def earth_stand_in(seed: int = 0, width: int = 1024, height: int = 512) -> np.ndarray:
-    """A u8[height, width, 3] image in place of ``earthmap.jpg`` (1024x512),
-    which the repository does not hold: latitude bands with seeded noise."""
-    rng = np.random.default_rng(seed)
-    lat = np.linspace(0.0, math.pi, height)[:, None, None]
-    lon = np.linspace(0.0, 2.0 * math.pi, width)[None, :, None]
-    base = 0.5 + 0.25 * np.sin(3.0 * lat + np.array([0.0, 1.0, 2.0])) * np.cos(2.0 * lon)
-    img = base + rng.normal(0.0, 0.08, (height, width, 3))
-    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
-
-
-PLANETS = {"Saturn.jpg": (1, (0.85, 0.75, 0.55)), "Jupiter.jpg": (2, (0.8, 0.6, 0.45)),
-           "Mars.jpg": (3, (0.75, 0.35, 0.2))}  # file -> (seed offset, base colour)
-SHUTTLE_RADII = (0.35, 0.15)  # the stand-in Shuttle's torus at model scale: about one unit across
-SHUTTLE_TILT_DEG = 35.0
-
-
-def planet_stand_in(seed: int, colour, width: int = 1024, height: int = 512) -> np.ndarray:
-    """A u8[height, width, 3] banded planet map: latitude bands of seeded
-    widths and shades around ``colour``, with mild noise."""
-    rng = np.random.default_rng(seed)
-    lat = np.linspace(0.0, 1.0, height)[:, None, None]
-    lon = np.linspace(0.0, 2.0 * math.pi, width)[None, :, None]
-    freqs, phases = rng.uniform(4.0, 24.0, 3), rng.uniform(0.0, 2.0 * math.pi, 3)
-    bands = sum(np.sin(2.0 * math.pi * f * lat + p + 0.15 * np.sin(lon + p)) for f, p in zip(freqs, phases))
-    img = np.asarray(colour) * (0.8 + 0.07 * bands) + rng.normal(0.0, 0.02, (height, width, 3))
-    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
-
-
-def shuttle_obj_text(nu: int = 96, nv: int = 68) -> str:
-    """OBJ text of a closed torus of ``2 * nu * nv`` triangles standing in
-    for ``obj/Shuttle.obj`` (13,079 triangles): ``nu * nv`` quads with ``vt``
-    and ``vn`` records, at model scale (about one unit across, tilted), so
-    that ``wwscene``'s zoom 13.5, rotate_y 56 and translate place it in the
-    camera's view.  With the defaults: 13,056 triangles."""
-    big, small = SHUTTLE_RADII
-    phi = 2.0 * math.pi * np.arange(nu) / nu
-    th = 2.0 * math.pi * np.arange(nv) / nv
-    ring = big + small * np.cos(th)[None, :]
-    a = math.radians(SHUTTLE_TILT_DEG)
-
-    def tilt(x, y, z):
-        return np.stack([x, y * math.cos(a) - z * math.sin(a), y * math.sin(a) + z * math.cos(a)], -1)
-
-    verts = tilt(ring * np.cos(phi)[:, None], np.broadcast_to(small * np.sin(th)[None, :], (nu, nv)),
-                 ring * np.sin(phi)[:, None]).reshape(-1, 3)
-    normals = tilt(np.cos(th)[None, :] * np.cos(phi)[:, None], np.broadcast_to(np.sin(th)[None, :], (nu, nv)),
-                   np.cos(th)[None, :] * np.sin(phi)[:, None]).reshape(-1, 3)
-    uvs = np.stack(np.meshgrid(np.arange(nu) / nu, np.arange(nv) / nv, indexing="ij"), -1).reshape(-1, 2)
-    lines = ["# stand-in for Shuttle.obj: a torus of quads", "o shuttle_stand_in", "g hull", "s 1",
-             "usemtl grey"]
-    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
-    lines += [f"vt {u:.9g} {v:.9g}" for u, v in uvs]
-    lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in normals]
-    for i in range(nu):
-        for j in range(nv):
-            quad = [i * nv + j, ((i + 1) % nu) * nv + j, ((i + 1) % nu) * nv + (j + 1) % nv, i * nv + (j + 1) % nv]
-            lines.append("f " + " ".join(f"{k + 1}/{k + 1}/{k + 1}" for k in quad))
-    return "\n".join(lines) + "\n"
-
-
-def write_stand_in_assets(directory: str, seed: int = 0, shuttle=(96, 68), encode=None) -> dict:
-    """Write the files that ``earth``, ``final_scene``, ``obj_uv_demo`` and
-    ``wwscene`` read, which the repository does not hold, as generated
-    stand-ins: ``earthmap.jpg`` (:func:`earth_stand_in`), ``Saturn.jpg``,
-    ``Jupiter.jpg`` and ``Mars.jpg`` (1024x512 each, :func:`planet_stand_in`)
-    and ``obj/Shuttle.obj`` (:func:`shuttle_obj_text` of ``shuttle = (nu, nv)``).
-    ``encode(path, u8[H, W, 3])`` writes a JPEG, by default the port's
-    ``write_jpeg`` at quality 100.  Returns ``{file name: image}``."""
-    import os
-
-    if encode is None:
-        from raytracer2022_tpu_torch.utils.imageio import write_jpeg as encode
-    images = {"earthmap.jpg": earth_stand_in(seed)}
-    for name, (offset, colour) in PLANETS.items():
-        images[name] = planet_stand_in(seed + offset, colour)
-    os.makedirs(os.path.join(directory, "obj"), exist_ok=True)
-    for name, img in images.items():
-        encode(os.path.join(directory, name), img)
-    with open(os.path.join(directory, "obj", "Shuttle.obj"), "w") as f:
-        f.write(shuttle_obj_text(*shuttle))
-    return images
-
-
-@contextlib.contextmanager
-def source_dir_env(path: str):
-    """``RT2022_SOURCE_DIR`` set to ``path`` inside the block, restored after."""
-    import os
-
-    old = os.environ.get("RT2022_SOURCE_DIR")
-    os.environ["RT2022_SOURCE_DIR"] = path
-    try:
-        yield path
-    finally:
-        if old is None:
-            del os.environ["RT2022_SOURCE_DIR"]
-        else:
-            os.environ["RT2022_SOURCE_DIR"] = old
 
 
 def mesh_view_share(bundle, device, width: int = 64, height: int = 36) -> float:
@@ -1087,9 +999,6 @@ def phase_library(dev, smi) -> dict:
     import time
 
     from raytracer2022_tpu_torch import cli
-    from raytracer2022_tpu_torch.render.camera import make_camera
-    from raytracer2022_tpu_torch.render.renderer import RenderConfig
-    from raytracer2022_tpu_torch.scene.library import SCENES
     from raytracer2022_tpu_torch.utils.imageio import read_png
 
     out = {}
@@ -1107,20 +1016,32 @@ def phase_library(dev, smi) -> dict:
             print(f"cli {name} {SMALL}x{SMALL} x {SMALL_SPP} spp: {dt:.2f} s wall, png mean "
                   f"{png.mean():.2f}", flush=True)
     for name in ("cornell_smoke", "two_perlin_spheres"):
-
-        def build(device, name=name):
-            bundle = SCENES[name](device=device)
-            return bundle.scene, make_camera(**bundle.camera_kwargs, device=device)
-
-        background = SCENES[name](device="cpu").background
-        card_vs_cpu(dev, name, build, RenderConfig(width=SMALL, height=SMALL, spp=SMALL_SPP, max_depth=DEPTH,
-                                                   background=background))
+        card_vs_cpu(dev, name, *library_check(name))
     return out
+
+
+def library_check(name: str) -> tuple:
+    """``(build, cfg)`` of phase ``library``'s card-vs-CPU check of the
+    library scene ``name``: ``build(device) -> (scene, camera)``, and
+    ``SMALL`` x ``SMALL`` x ``SMALL_SPP``, depth ``DEPTH``, under the scene's
+    own background."""
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig
+    from raytracer2022_tpu_torch.scene.library import SCENES
+
+    def build(device):
+        bundle = SCENES[name](device=device)
+        return bundle.scene, make_camera(**bundle.camera_kwargs, device=device)
+
+    background = SCENES[name](device="cpu").background
+    return build, RenderConfig(width=SMALL, height=SMALL, spp=SMALL_SPP, max_depth=DEPTH, background=background)
 
 
 # phase assets: the JAX CLI's default invocation, wwscene from the stand-in files
 WW_WIDTH, WW_HEIGHT, WW_SPP = 640, 360, 100
-WW_CHECK = (64, 36, 8)  # card-vs-CPU check of wwscene: width, height, spp ...
+WW_ARGV = ("--scene", "wwscene", "--width", str(WW_WIDTH), "--height", str(WW_HEIGHT), "--spp", str(WW_SPP),
+           "--max-depth", str(DEPTH))  # the JAX CLI's default invocation, less its --out
+WW_CHECK = (64, 36, 24)  # card-vs-CPU check of wwscene: width, height, spp (at 8 spp it detected 8.4-9.1% only) ...
 WW_CHECK_CARD_SEEDS = (0, 1)  # ... with two card renders, each held to the bound
 WW_CHECK_REPLICATES = 64  # ... and this many card replicates: its 8-spp means are heavy-tailed (PERF.md §6)
 WW_CHECK_SHUTTLE = (24, 12)  # ... with a 576-triangle Shuttle, which the CPU's plain version walks by brute force
@@ -1141,14 +1062,13 @@ def ww_check_build(source_dir: str):
     return build
 
 
-def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = CPU_SEEDS,
-                  factor: int = CARD_FACTOR, device: str = "cuda") -> dict:
-    """Draw or bias: wwscene's card-vs-CPU check (phase ``assets``) with
-    more seeds on both sides.  The check's own setup: ``WW_CHECK``, depth
-    ``DEPTH``, the stand-in assets with a ``WW_CHECK_SHUTTLE`` Shuttle; the
-    ``device`` renders each of ``card_seeds`` at ``factor`` times the samples,
-    the CPU each of ``cpu_seeds``.  Prints and returns, per
-    channel: ``pooled_z``, the pooled ``device`` mean against the pooled
+def card_cpu_study(label: str, build, cfg, card_seeds, cpu_seeds, replicates: int, first: int = CPU_SEEDS,
+                   factor: int = CARD_FACTOR, device: str = "cuda") -> dict:
+    """Draw or bias: a card-vs-CPU check (:func:`card_vs_cpu`) with more
+    seeds on both sides.  ``build(device) -> (scene, camera)`` and ``cfg``
+    are the check's own; the ``device`` renders each of ``card_seeds`` at
+    ``factor`` times the samples, the CPU each of ``cpu_seeds``.  Prints and
+    returns, per channel: ``pooled_z``, the pooled ``device`` mean against the pooled
     CPU mean in standard errors from each side's own seed-to-seed variance;
     ``single_z``, each ``device`` render against the CPU mean from the
     CPU's variance only (the check's statistic without replicates);
@@ -1156,9 +1076,10 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
     CPU seeds (the check's own CPU side when those are seeds 100-107);
     ``pooled_sd_z``, each ``device`` render against that mean as the check
     computes it (:func:`pooled_check`: the variance pooled from those
-    ``first`` CPU renders and ``WW_CHECK_REPLICATES`` ``device`` renders at
-    the CPU's samples from one launch), ``pooled_sd`` its sd, ``var_ratio``
-    and ``rep_z`` its replicates' variance ratio and mean's z; ``first_z``,
+    ``first`` CPU renders and ``replicates`` ``device`` renders at
+    the CPU's samples from one launch), ``pooled_sd`` its sd, ``var_ratio``,
+    ``rep_z`` and ``min_rel_bias`` its replicates' variance ratio, their
+    mean's z and the smallest relative bias it detects; ``first_z``,
     that mean against the whole CPU mean; ``device_sd`` and ``cpu_sd``, each side's
     seed-to-seed sd, ``device_skew`` and ``cpu_skew`` the skewness of its
     renders' channel means (``device_means``, ``cpu_means``), and
@@ -1167,34 +1088,27 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
     the ``device``'s seed-to-seed sd over the CPU's scaled to its samples
     (about 1 when both are the same estimator and the seeds sample its
     tail).  ``verdict`` is ``"draw"`` when every |pooled_z| < 3, else
-    ``"bias"``.  Not called by :func:`main`: run it alone with
-    ``python3 -c "import chip_smoke; chip_smoke.wwscene_study(range(16), range(100, 116))"``."""
+    ``"bias"``.  The last line printed is ``{"<label>_study": result}``."""
     import json
-    import tempfile
     import time
 
     import torch
 
-    from raytracer2022_tpu_torch.render.renderer import RenderConfig
     from raytracer2022_tpu_torch.tools import device_line
 
     card_seeds, cpu_seeds = list(card_seeds), list(cpu_seeds)
     dev = torch.device(device)
     line = device_line(dev)
     print(line, flush=True)
-    w, h, n = WW_CHECK
-    cfg = RenderConfig(width=w, height=h, spp=n, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
-    with tempfile.TemporaryDirectory() as tmp:
-        write_stand_in_assets(tmp, shuttle=WW_CHECK_SHUTTLE)
-        build = ww_check_build(tmp)
-        t0 = time.perf_counter()
-        scene, cam = build(dev)
-        m_dev, n_dev = _seed_means(scene, cam, cfg, card_seeds, n * factor)
-        reps = replicate_means(scene, cam, cfg, WW_CHECK_REPLICATES)
-        dev_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        m_cpu, n_cpu = _seed_means(*build("cpu"), cfg, cpu_seeds, n)
-        cpu_s = time.perf_counter() - t0
+    n = cfg.spp
+    t0 = time.perf_counter()
+    scene, cam = build(dev)
+    m_dev, n_dev = _seed_means(scene, cam, cfg, card_seeds, n * factor)
+    reps = replicate_means(scene, cam, cfg, replicates)
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu, n_cpu = _seed_means(*build("cpu"), cfg, cpu_seeds, n)
+    cpu_s = time.perf_counter() - t0
     mean_dev, var_dev = m_dev.mean(axis=0), m_dev.var(axis=0, ddof=1)
     mean_cpu, var_cpu = m_cpu.mean(axis=0), m_cpu.var(axis=0, ddof=1)
     sd_cpu = np.sqrt(var_cpu)
@@ -1207,12 +1121,13 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
     pooled = pooled_check(m_cpu[:first], reps, m_dev, n_cpu, n_dev)
 
     result = {
-        "setup": f"wwscene {w}x{h}, depth {DEPTH}, Shuttle {WW_CHECK_SHUTTLE}, stand-in assets",
+        "setup": f"{label} {cfg.width}x{cfg.height}, depth {cfg.max_depth}",
         "device": line, "device_seeds": card_seeds, "device_spp": n_dev, "cpu_seeds": cpu_seeds, "cpu_spp": n_cpu,
         "device_mean": mean_dev.tolist(), "cpu_mean": mean_cpu.tolist(), "cpu_first_mean": mean_first.tolist(),
         "pooled_z": pooled_z.tolist(), "single_z": single_z.tolist(), "single_z_first": single_z_first.tolist(),
-        "pooled_sd_z": pooled["z"].tolist(), "pooled_sd": pooled["sd"].tolist(), "replicates": WW_CHECK_REPLICATES,
+        "pooled_sd_z": pooled["z"].tolist(), "pooled_sd": pooled["sd"].tolist(), "replicates": replicates,
         "var_ratio": pooled["var_ratio"].tolist(), "rep_z": pooled["rep_z"].tolist(),
+        "min_rel_bias": pooled["min_rel_bias"].tolist(),
         "first_z": first_z.tolist(), "device_sd": np.sqrt(var_dev).tolist(), "cpu_sd": sd_cpu.tolist(),
         "device_skew": _skew(m_dev).tolist(), "cpu_skew": _skew(m_cpu).tolist(),
         "first_sd_ratio": (sd_first / sd_cpu).tolist(),
@@ -1220,8 +1135,35 @@ def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = 
         "verdict": "draw" if (np.abs(pooled_z) < 3.0).all() else "bias",
         "device_s": dev_s, "cpu_s": cpu_s, "device_means": m_dev.tolist(), "cpu_means": m_cpu.tolist(),
     }
-    print(json.dumps({"wwscene_study": result}), flush=True)
+    print(json.dumps({f"{label}_study": result}), flush=True)
     return result
+
+
+def wwscene_study(card_seeds=range(16), cpu_seeds=range(100, 116), first: int = CPU_SEEDS,
+                  factor: int = CARD_FACTOR, device: str = "cuda") -> dict:
+    """:func:`card_cpu_study` of wwscene's check (phase ``assets``): its
+    ``WW_CHECK``, depth ``DEPTH``, the stand-in assets with a
+    ``WW_CHECK_SHUTTLE`` Shuttle and ``WW_CHECK_REPLICATES`` replicates.  Not
+    called by :func:`main`: run it alone with
+    ``python3 -c "import chip_smoke; chip_smoke.wwscene_study(range(16), range(100, 116))"``."""
+    import tempfile
+
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig
+
+    w, h, n = WW_CHECK
+    cfg = RenderConfig(width=w, height=h, spp=n, max_depth=DEPTH, background=(0.0, 0.0, 0.0))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_stand_in_assets(tmp, shuttle=WW_CHECK_SHUTTLE)
+        return card_cpu_study("wwscene", ww_check_build(tmp), cfg, card_seeds, cpu_seeds, WW_CHECK_REPLICATES,
+                              first, factor, device)
+
+
+def library_study(name: str, card_seeds=range(64), cpu_seeds=range(100, 164), device: str = "cuda") -> dict:
+    """:func:`card_cpu_study` of phase ``library``'s check of ``name``
+    (``cornell_smoke`` or ``two_perlin_spheres``: :func:`library_check`, with
+    ``REPLICATES`` replicates).  Not called by :func:`main`: run it alone with
+    ``python3 -c "import chip_smoke; chip_smoke.library_study('two_perlin_spheres')"``."""
+    return card_cpu_study(name, *library_check(name), card_seeds, cpu_seeds, REPLICATES, device=device)
 
 
 def _cli_capture(argv) -> tuple:
@@ -1297,10 +1239,11 @@ def phase_assets(dev, smi) -> dict:
         out = os.path.join(tmp, "output.jpg")
         synchronize(dev)
         bvh8.LAUNCHES = 0  # count only this render's launches
-        dt, mpaths = _cli_capture(["--scene", "wwscene", "--width", str(WW_WIDTH), "--height", str(WW_HEIGHT),
-                                   "--spp", str(WW_SPP), "--max-depth", str(DEPTH), "--out", out, "--device", str(dev)])
+        dt, mpaths = _cli_capture([*WW_ARGV, "--out", out, "--device", str(dev)])
         launches, memory = bvh8.LAUNCHES, bvh8.TREE_MEMORY
         img = read_jpeg(out)
+        with open(out, "rb") as f:
+            jpeg = f.read()
         assert launches > 0 or dev.type != "cuda", "the wwscene render never launched K1"
         assert img.shape == (WW_HEIGHT, WW_WIDTH, 3), f"output.jpg is {img.shape}"
         assert img.std() > 1.0 and img.max() > 64, "output.jpg is blank"
@@ -1346,8 +1289,229 @@ def phase_assets(dev, smi) -> dict:
     return {"seconds": dt, "mpaths": mpaths, "wall_mpaths": WW_WIDTH * WW_HEIGHT * WW_SPP / dt / 1e6, "spp": WW_SPP,
             "launches": launches, "groups": groups, "depth": depth, "tree_memory": memory, "decode_s": decode_s,
             "build_s": build_s, "check_z": ww_z,
-            "mesh_share": share, "small_s": small}
+            "mesh_share": share, "small_s": small, "jpeg": jpeg}
 
+
+# phase installed: the port as a user installs it, outside the checkout
+PIP_OFFLINE = ("--no-index", "--no-cache-dir", "--disable-pip-version-check")  # nothing fetched, nothing cached
+INSTALL_TIMEOUT_S = 600  # each pip call, and the installed command's run
+INSTALLED_REPORT = "installed: "  # the prefix of INSTALLED_RUNNER's report line
+
+# ``python -c INSTALLED_RUNNER NU NV SCRIPT ARG...``: with the installed
+# package, write stand-ins with a NU x NV Shuttle into $RT2022_SOURCE_DIR,
+# then run the console script SCRIPT as __main__ with ARG... (its
+# ``sys.exit(main())`` is the process's exit code) and, at exit, print one
+# line: INSTALLED_REPORT and JSON of where the package, its sources and its
+# builds lie, nvcc's seconds, K1's launches in this process, and whether
+# chip_smoke can be imported here.
+INSTALLED_RUNNER = f"""
+import atexit, importlib.util, json, os, runpy, sys
+from raytracer2022_tpu_torch import cuda_build, native
+from raytracer2022_tpu_torch.ops import bvh8
+from raytracer2022_tpu_torch.tools.standins import write_stand_in_assets
+
+nu, nv, script, *argv = sys.argv[1:]
+write_stand_in_assets(os.environ["RT2022_SOURCE_DIR"], shuttle=(int(nu), int(nv)))
+builds = []
+_build = cuda_build.build
+
+
+def build(source):
+    out = _build(source)
+    builds.append({{"source": source, "path": out[0], "nvcc_s": out[2]}})
+    return out
+
+
+def report():
+    print({INSTALLED_REPORT!r} + json.dumps({{
+        "package": os.path.dirname(cuda_build.__file__), "csrc": cuda_build.CSRC_DIR, "builds": builds,
+        "native": native.LIBRARY_PATH, "k1_launches": bvh8.LAUNCHES,
+        "chip_smoke_importable": importlib.util.find_spec("chip_smoke") is not None}}), flush=True)
+
+
+cuda_build.build = build
+atexit.register(report)
+sys.argv = [script, *argv]
+runpy.run_path(script, run_name="__main__")
+"""
+
+
+def _run(cmd) -> None:
+    """``subprocess.run`` that raises with the command's output when it fails."""
+    import subprocess
+
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=INSTALL_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[:4]} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+
+
+def build_wheel(root: str, out_dir: str) -> str:
+    """A wheel of the checkout at ``root``, built by pip with the host's
+    setuptools (``--no-deps --no-build-isolation``, nothing fetched) from a
+    copy of ``pyproject.toml`` and the two packages under ``out_dir``, so that
+    the build writes nothing into the checkout.  Returns the wheel's path."""
+    import glob
+    import os
+    import shutil
+    import sys
+
+    src = os.path.join(out_dir, "src")
+    os.makedirs(src)
+    shutil.copy(os.path.join(root, "pyproject.toml"), src)
+    for pkg in ("raytracer2022_tpu", "raytracer2022_tpu_torch"):
+        shutil.copytree(os.path.join(root, pkg), os.path.join(src, pkg), ignore=shutil.ignore_patterns("__pycache__"))
+    _run([sys.executable, "-m", "pip", "wheel", "--no-deps", "--no-build-isolation", *PIP_OFFLINE, "-w", out_dir,
+          src])
+    (wheel,) = glob.glob(os.path.join(out_dir, "*.whl"))
+    return wheel
+
+
+def install_wheel(wheel: str, target: str) -> None:
+    """``pip install --no-deps --target target wheel``, offline."""
+    import sys
+
+    _run([sys.executable, "-m", "pip", "install", "--no-deps", *PIP_OFFLINE, "--target", target, wheel])
+
+
+def tree_state(root: str) -> dict:
+    """Every path under ``root`` -> (size, mtime in ns)."""
+    import os
+
+    state = {}
+    for here, dirs, files in os.walk(root):
+        for name in dirs + files:
+            st = os.lstat(os.path.join(here, name))
+            state[os.path.relpath(os.path.join(here, name), root)] = (st.st_size, st.st_mtime_ns)
+    return state
+
+
+def run_installed(target: str, work: str, env: dict, argv, shuttle=(96, 68)) -> tuple:
+    """The installed ``rt2022-torch`` (pip's console script under
+    ``target/bin``) with ``argv``, from ``work`` under ``env``, through
+    :data:`INSTALLED_RUNNER`.  Returns ``(process, its report or None)``."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", INSTALLED_RUNNER, str(shuttle[0]), str(shuttle[1]),
+                           os.path.join(target, "bin", "rt2022-torch"), *argv],
+                          cwd=work, env=env, capture_output=True, text=True, timeout=INSTALL_TIMEOUT_S)
+    lines = [ln[len(INSTALLED_REPORT):] for ln in proc.stdout.splitlines() if ln.startswith(INSTALLED_REPORT)]
+    return proc, json.loads(lines[-1]) if lines else None
+
+
+def installed_env(target: str, home: str, **extra) -> dict:
+    """This process's environment with only ``target`` on ``PYTHONPATH``,
+    ``HOME`` at ``home``, no ``XDG_CACHE_HOME`` nor ``RT2022_SOURCE_DIR``
+    unless ``extra`` sets them."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XDG_CACHE_HOME", "RT2022_SOURCE_DIR")}
+    env.update(PYTHONPATH=target, HOME=home, **extra)
+    return env
+
+
+def phase_installed(dev, smi, assets: dict) -> dict:
+    """The port as a user installs it: a wheel of the checkout (pip, offline),
+    installed with ``pip install --target`` into a temporary directory, and
+    its ``rt2022-torch`` command run from a temporary working directory with
+    only that directory on ``PYTHONPATH`` and ``HOME`` and ``XDG_CACHE_HOME``
+    in a temporary directory: the JAX CLI's default invocation (``wwscene``,
+    640x360 x 100 spp, depth 50, ``--out output.jpg``) on stand-ins the
+    installed package writes, twice: with the cache empty, then warm.
+    Holds: exit 0, a 640x360 JPEG whose channel means lie within
+    ``MAX_REL`` of phase ``assets``' (and whose bytes equal them where two
+    checkout renders on the card do), K1 and the host runtime built from the
+    shipped sources under ``XDG_CACHE_HOME`` (the same source hashes as the
+    checkout's builds) by the first run and found there by the second, K1
+    launched, nothing written under the install directory, and
+    ``chip_smoke`` not importable there."""
+    import os
+    import re
+    import tempfile
+    import time
+    import zipfile
+
+    from raytracer2022_tpu_torch import native
+    from raytracer2022_tpu_torch.cuda_build import build
+    from raytracer2022_tpu_torch.utils.imageio import read_jpeg
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        wheel = build_wheel(root, os.path.join(tmp, "wheel"))
+        wheel_s = time.perf_counter() - t0
+        with zipfile.ZipFile(wheel) as z:
+            names = z.namelist()
+            (entry,) = [n for n in names if n.endswith(".dist-info/entry_points.txt")]
+            entry_points = z.read(entry).decode()
+        shipped = sorted(n for n in names if n.startswith("raytracer2022_tpu_torch/csrc/"))
+        print(f"installed: wheel {os.path.basename(wheel)} ({len(names)} files) in {wheel_s:.2f} s, its csrc/: "
+              f"{shipped}", flush=True)
+        assert {"raytracer2022_tpu_torch/csrc/bvh8.cu", "raytracer2022_tpu_torch/csrc/rt_native.cpp"} <= set(shipped)
+        assert "rt2022-torch = raytracer2022_tpu_torch.cli:main" in entry_points, entry_points
+
+        target, home, work = (os.path.join(tmp, d) for d in ("site", "home", "work"))
+        install_wheel(wheel, target)
+        os.makedirs(home)
+        os.makedirs(work)
+        before = tree_state(target)
+        cache = os.path.join(home, "cache")
+        env = installed_env(target, home, XDG_CACHE_HOME=cache, RT2022_SOURCE_DIR=os.path.join(work, "stand-ins"))
+        runs = {}
+        for run in ("cold", "warm"):  # the first run builds K1 and the runtime, the second finds them
+            t0 = time.perf_counter()
+            proc, rep = run_installed(target, work, env, [*WW_ARGV, "--out", "output.jpg"])
+            dt = time.perf_counter() - t0
+            print(proc.stdout, end="", flush=True)
+            assert proc.returncode == 0 and rep is not None, f"rt2022-torch exited {proc.returncode}:\n{proc.stderr}"
+            after = tree_state(target)
+            changed = sorted(k for k in set(before) | set(after) if before.get(k) != after.get(k))
+            assert not changed, f"the installed run wrote under its install directory: {changed[:10]}"
+            (k1,) = [b for b in rep["builds"] if b["source"] == "bvh8.cu"]
+            with open(os.path.join(work, "output.jpg"), "rb") as f:
+                jpeg = f.read()
+            rate = float(re.findall(r"([0-9.]+) Mpaths/s", proc.stdout)[-1])
+            runs[run] = {"seconds": dt, "mpaths": rate, "launches": rep["k1_launches"], "nvcc_s": k1["nvcc_s"],
+                         "k1": k1["path"], "native": rep["native"], "jpeg": jpeg}
+            print(f"installed, {run} cache: package {rep['package']}; K1 from {rep['csrc']}/bvh8.cu in {k1['path']} "
+                  f"(nvcc {k1['nvcc_s']:.2f} s), host runtime {rep['native']}; K1 launches {rep['k1_launches']}; "
+                  f"chip_smoke importable there: {rep['chip_smoke_importable']}; {rate} Mpaths/s of the render (the "
+                  f"CLI's, 2 decimals), {dt} s wall of the process ({smi})", flush=True)
+            assert rep["package"].startswith(target + os.sep) and rep["csrc"].startswith(target + os.sep)
+            assert k1["path"].startswith(cache + os.sep), k1["path"]
+            assert os.path.basename(k1["path"]) == os.path.basename(build("bvh8.cu")[0]), "K1: another source"
+            if native.available():  # else both processes build their trees with NumPy
+                assert rep["native"].startswith(cache + os.sep), rep["native"]
+                assert os.path.basename(rep["native"]) == os.path.basename(native.LIBRARY_PATH), "another source"
+            assert rep["k1_launches"] > 0, "the installed render never launched K1"
+            assert not rep["chip_smoke_importable"], "chip_smoke is importable beside the installed package"
+        cold, warm = runs["cold"], runs["warm"]
+        assert cold["nvcc_s"] > 0 and warm["nvcc_s"] == 0 and warm["k1"] == cold["k1"], "K1 was not built once"
+        assert warm["native"] == cold["native"] and warm["jpeg"] == cold["jpeg"]
+
+        img = read_jpeg(cold["jpeg"])
+        assert img.shape == (WW_HEIGHT, WW_WIDTH, 3), f"the installed render's JPEG is {img.shape}"
+        m_inst = img.reshape(-1, 3).mean(axis=0)
+        m_ref = read_jpeg(assets["jpeg"]).reshape(-1, 3).mean(axis=0)
+        rel = _rel(m_inst, m_ref)
+        note = "byte-equal to phase assets' output.jpg"
+        if cold["jpeg"] != assets["jpeg"]:
+            again = os.path.join(work, "again.jpg")
+            with source_dir_env(env["RT2022_SOURCE_DIR"]):
+                _cli_capture([*WW_ARGV, "--out", again, "--device", str(dev)])
+            with open(again, "rb") as f:
+                assert f.read() != assets["jpeg"], "two checkout renders are byte-equal, the installed one differs"
+            note = "its bytes differ from phase assets' output.jpg, as a second checkout render's do"
+        print(f"installed rt2022-torch wwscene {WW_WIDTH}x{WW_HEIGHT} x {WW_SPP} spp, depth {DEPTH}: {warm['mpaths']} "
+              f"Mpaths/s with the cache warm ({cold['mpaths']} cold: its render includes the K1 build) vs phase "
+              f"assets' {assets['mpaths']}; channel means {m_inst.round(3).tolist()} vs phase assets' "
+              f"{m_ref.round(3).tolist()} (rel {rel.round(4).tolist()}, bound {MAX_REL}); {note} ({smi})", flush=True)
+        assert (rel < MAX_REL).all(), "the installed render and phase assets' disagree"
+    return {"wheel_files": len(names), "csrc": shipped, "wheel_s": wheel_s, "launches": cold["launches"],
+            "byte_equal": cold["jpeg"] == assets["jpeg"],
+            **{f"{run}_{k}": v for run, r in runs.items() for k, v in r.items() if k in ("seconds", "mpaths", "nvcc_s")}}
 
 FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT = 2560, 1440  # the reference's own frame (main.rs:33-41)
 FLAGSHIP_SPP, FLAGSHIP_CHUNK = 4, 2  # phase flagship's run: two chunks of the tool's loop
@@ -2321,6 +2485,9 @@ def main(argv=None) -> int:
     assets = phase_assets(dev, smi)
     print(f"[phase assets: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
+    installed = phase_installed(dev, smi, assets)
+    print(f"[phase installed: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
     flag = phase_flagship(dev, smi)
     print(f"[phase flagship: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
@@ -2351,6 +2518,7 @@ def main(argv=None) -> int:
         "deep_render_s": deep["render_s"],
         "bench": bench_rec["line"],
         "wwscene": {k: assets[k] for k in ("seconds", "mpaths", "wall_mpaths", "spp", "launches", "decode_s", "small_s")},
+        "installed": installed,
         "flagship": {k: flag[k] for k in ("runs", "mae", "launches")},
         "card": smi,
     }}), flush=True)
@@ -2383,6 +2551,7 @@ def main(argv=None) -> int:
                              "mesh_sharded_rank0": multi["world2_gloo"]["k1"][0],
                              "mesh_sharded_rank1": multi["world2_gloo"]["k1"][1],
                              "deep_mesh": deep["launches"], "wwscene": assets["launches"],
+                             "installed_wwscene": installed["launches"],
                              "flagship": flag["launches"], "bench_obj": bench_rec["k1"]["obj"],
                              "bench_fwd_bwd_obj": bench_rec["k1"]["fwd_bwd_obj"]},
         "launches_per_mesh_render": mesh_launches,

@@ -1,10 +1,11 @@
 """Build the package's hand-written CUDA kernels with nvcc and load them.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled at first
-use into ``build/kernels/<stem>-<hash>.so`` at the repository root (the
-hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ctypes.  Nothing is built when the package is imported: only a
-kernel launch on a CUDA tensor reaches here.
+use into ``kernels/<stem>-<hash>.so`` under :func:`build_root` (the hash
+covers the source and the flags, so an edited source rebuilds), then
+loaded with ctypes.  The sources ship with the package, installed or not.
+Nothing is built when the package is imported: only a kernel launch on a
+CUDA tensor reaches here.
 """
 
 from __future__ import annotations
@@ -19,7 +20,28 @@ import time
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+
+def build_root() -> str:
+    """Where the package builds what it compiles: ``build/`` at the
+    repository root in a checkout (the package's parent directory holds this
+    repository's ``pyproject.toml``, and ``.gitignore`` lists ``build/``);
+    for an installed package, a per-user cache directory,
+    ``$XDG_CACHE_HOME/raytracer2022_tpu_torch`` (``~/.cache`` when that is
+    unset), so that it never writes under its own installed tree."""
+    root = os.path.dirname(_PKG_DIR)
+    try:
+        with open(os.path.join(root, "pyproject.toml")) as f:
+            checkout = 'name = "raytracer2022-tpu"' in f.read()
+    except FileNotFoundError:
+        checkout = False
+    if checkout:
+        return os.path.join(root, "build")
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "raytracer2022_tpu_torch")
+
+
+BUILD_DIR = os.path.join(build_root(), "kernels")
 
 # sm_90a: Hopper.  No --use_fast_math: the slab tests rely on IEEE 1/0 = inf
 # and parity with the plain versions is judged at rtol 2e-5.  -fmad=false

@@ -1,14 +1,15 @@
 """ctypes bindings for the port's C++ host runtime (csrc/rt_native.cpp).
 
 The OBJ parser and the binned-SAH BVH builder, the port's own copy of the
-JAX package's native runtime.  The source is compiled with ``g++`` at first
-use into ``build/native/rt_native-<hash>.so`` at the repository root, on
-the host that runs it (``-march=native``); the hash covers the source, the
-flags and the host's CPU (a library built for another CPU is never
-loaded), and the library is renamed into place atomically, so concurrent
-test workers never load a torn file.  Where ``g++`` is missing, every
-caller takes its NumPy path, as the JAX package does (set
-``RT2022_NO_NATIVE=1`` to force that).
+JAX package's native runtime.  The source ships with the package and is
+compiled with ``g++`` at first use into ``native/rt_native-<hash>.so``
+under ``cuda_build.build_root()`` (``build/`` in a checkout, a per-user
+cache directory when installed), on the host that runs it
+(``-march=native``); the hash covers the source, the flags and the host's
+CPU (a library built for another CPU is never loaded), and the library is
+renamed into place atomically, so concurrent test workers never load a
+torn file.  Where ``g++`` is missing, every caller takes its NumPy path,
+as the JAX package does (set ``RT2022_NO_NATIVE=1`` to force that).
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import threading
 
 import numpy as np
 
-_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "rt_native.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "native")
+from .cuda_build import CSRC_DIR, build_root
+
+SOURCE = os.path.join(CSRC_DIR, "rt_native.cpp")
+BUILD_DIR = os.path.join(build_root(), "native")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall")  # native/Makefile's
 
 _lock = threading.Lock()

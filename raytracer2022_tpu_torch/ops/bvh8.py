@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..scene.types import MSPHERE, RECT, RING, SPHERE, TRIANGLE, Bvh8Tree
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .vecmath import masked_sqrt
 
 LEAF = 16  # prims per leaf
@@ -143,12 +144,14 @@ def check_tree(entries) -> int:
     return depth
 
 
-def build_bvh8(kind, params, mat_id, flip, pids, bmin, bmax, device="cpu") -> Bvh8Tree:
+def build_bvh8(kind, params, mat_id, flip, pids, bmin, bmax, device=DEFAULT_DEVICE) -> Bvh8Tree:
     """8-ary tree collapsed from the host binned-SAH binary tree ->
-    :class:`Bvh8Tree` on ``device``.  Each group's 8 slots are formed by
-    repeatedly expanding the largest-surface-area internal slot."""
+    :class:`Bvh8Tree` on ``device`` (default: the card; without one it
+    raises).  Each group's 8 slots are formed by repeatedly expanding the
+    largest-surface-area internal slot."""
     from ..scene.bvh import build_bvh
 
+    device = resolve_device(device)
     nodes, order = build_bvh(bmin, bmax, leaf_size=LEAF)
     nb_min = nodes["bmin"].T  # (Nn, 3)
     nb_max = nodes["bmax"].T

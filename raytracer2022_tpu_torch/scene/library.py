@@ -10,8 +10,9 @@ it raises), and every scene renders.
 ``obj/Shuttle.obj``) from ``source_dir``, by default ``RT2022_SOURCE_DIR``
 as it is when the scene is built, else ``assets/`` at the repository root.
 The repository does not hold the reference's assets;
-``chip_smoke.write_stand_in_assets`` writes generated stand-ins.  Images are
-decoded by the port's own codec (``utils/imageio.py``), without Pillow.
+``tools/standins.py::write_stand_in_assets`` writes generated stand-ins.
+Images are decoded by the port's own codec (``utils/imageio.py``), without
+Pillow.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def _asset(source_dir: Optional[str], *parts: str) -> str:
         raise FileNotFoundError(
             f"scene asset {path!r} is missing: set RT2022_SOURCE_DIR (now "
             f"{os.environ.get('RT2022_SOURCE_DIR')!r}) to a directory holding it, or write "
-            "stand-ins with chip_smoke.write_stand_in_assets"
+            "stand-ins with python -m raytracer2022_tpu_torch.tools.standins DIR"
         )
     return path
 

@@ -1,8 +1,9 @@
 """Tools beside the package: :mod:`.bench` (``bench.py``'s cells),
 :mod:`.perf` (per-scene throughput), :mod:`.scaling` (the sharded render
 against one rank), :mod:`.flagship` (the reference's whole workload,
-restart-safe) and :mod:`.golden` (renders against the reference's
-committed images)."""
+restart-safe), :mod:`.golden` (renders against the reference's committed
+images) and :mod:`.standins` (generated stand-ins for the asset files the
+repository does not hold)."""
 
 from __future__ import annotations
 

@@ -35,7 +35,8 @@ keys in its order, unrounded; a run cut by ``--reps``, ``--size-div`` or
 
 ``final_scene`` and ``wwscene`` read their files from ``RT2022_SOURCE_DIR``;
 where it is unset, from the stand-ins that
-``chip_smoke.write_stand_in_assets`` writes into a temporary directory.
+``tools/standins.py::write_stand_in_assets`` writes into a temporary
+directory.
 ``--device`` defaults to the card and raises without one; ``--device cpu``
 times the plain versions on the CPU, which says nothing of the card.
 """
@@ -272,11 +273,11 @@ def main(argv=None) -> int:
 
     with contextlib.ExitStack() as stack:
         if os.environ.get("RT2022_SOURCE_DIR") is None:
-            import chip_smoke
+            from .standins import source_dir_env, write_stand_in_assets
 
             src = os.path.join(stack.enter_context(tempfile.TemporaryDirectory()), "stand-ins")
-            chip_smoke.write_stand_in_assets(src)
-            stack.enter_context(chip_smoke.source_dir_env(src))
+            write_stand_in_assets(src)
+            stack.enter_context(source_dir_env(src))
         for cell in FORWARD:
             c = cells[cell.key]
             b, cam = bundle(c.scene)

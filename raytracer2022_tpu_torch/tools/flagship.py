@@ -15,7 +15,7 @@ after every chunk, so a killed run resumes where it stopped.  Usage::
 
 The scene reads its files from ``RT2022_SOURCE_DIR`` as the library does; a
 missing file raises the library's ``FileNotFoundError`` (the tool writes no
-stand-ins: ``chip_smoke.write_stand_in_assets`` does, on request).  Prints
+stand-ins: ``tools/standins.py`` does, on request).  Prints
 the card's name and power limit (nvidia-smi), the JAX tool's ``# chunk
 i/n`` lines, and one JSON line with its keys (``workload``, ``wall_s``,
 ``paths``, ``Mpaths_per_s``; ``mae``, ``rmse``, ``exposure``,

@@ -9,8 +9,8 @@ A scene is a name of ``scene.library.SCENES`` or ``module:function`` as
 ``parallel/worker.py::build_scene`` takes it.  The scenes that read files
 (``earth``, ``final_scene``, ``obj_uv_demo``, ``wwscene``) read them from
 ``RT2022_SOURCE_DIR`` as the library does; where it is unset, from the
-stand-ins that ``chip_smoke.write_stand_in_assets`` writes into a temporary
-directory (the repository does not hold the reference's files).  Their
+stand-ins that ``tools/standins.py::write_stand_in_assets`` writes into a
+temporary directory (the repository does not hold the reference's files).  Their
 records name the directory.  The default list is cornell_box,
 random_scene, final_scene and wwscene.
 
@@ -122,11 +122,11 @@ def main(argv=None) -> int:
     with contextlib.ExitStack() as stack:
         src = os.environ.get("RT2022_SOURCE_DIR")
         if src is None and set(names) & set(READS_FILES):
-            import chip_smoke
+            from .standins import source_dir_env, write_stand_in_assets
 
             src = os.path.join(stack.enter_context(tempfile.TemporaryDirectory()), "stand-ins")
-            chip_smoke.write_stand_in_assets(src)
-            stack.enter_context(chip_smoke.source_dir_env(src))
+            write_stand_in_assets(src)
+            stack.enter_context(source_dir_env(src))
         for name in names:
             rec = measure(name, w, h, args.spp, args.depth, args.reps, args.scan, device)
             if name in READS_FILES:

@@ -4,6 +4,7 @@ wwscene study; every tool needs a card unless asked for the CPU, and none
 imports JAX.  Their numbers here
 time the plain versions on this host; the card's come from a run on the card."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -92,15 +93,12 @@ def test_scaling_on_two_gloo_ranks(capsys):
     assert 0 < rec["work_normalized_efficiency"] <= 1
 
 
-@pytest.mark.filterwarnings("ignore:invalid value encountered:RuntimeWarning")  # first_z: 0/0 when first == 2
-def test_wwscene_study_of_one_stream_on_both_sides(capsys, monkeypatch):
+def _one_stream_on_both_sides(rec, label, spp, out):
     """The same seeds on both sides: renders are deterministic per seed, so
     the means are equal, the pooled z is 0, the sd ratio 1, and each of the
     two renders lies +-1/sqrt(3) from their mean by the CPU-only formula;
     the check's pooled sd rescales those z's by the CPU sd over itself."""
-    monkeypatch.setattr(chip_smoke, "WW_CHECK_REPLICATES", 2)
-    rec = chip_smoke.wwscene_study((100, 101), (100, 101), first=2, factor=1, device="cpu")
-    assert rec["device_means"] == rec["cpu_means"] and rec["device_spp"] == rec["cpu_spp"] == 8
+    assert rec["device_means"] == rec["cpu_means"] and rec["device_spp"] == rec["cpu_spp"] == spp
     np.testing.assert_array_equal(rec["pooled_z"], 0.0)
     np.testing.assert_allclose(rec["sd_ratio"], 1.0, rtol=1e-12)
     np.testing.assert_allclose(np.abs(rec["single_z"]), 3 ** -0.5, rtol=1e-9)
@@ -108,8 +106,28 @@ def test_wwscene_study_of_one_stream_on_both_sides(capsys, monkeypatch):
     np.testing.assert_allclose(np.array(rec["pooled_sd_z"]) * rec["pooled_sd"],
                                np.array(rec["single_z_first"]) * rec["cpu_sd"], rtol=1e-9)
     assert rec["verdict"] == "draw" and rec["cpu_seeds"] == [100, 101]
-    out = capsys.readouterr().out.strip().splitlines()
-    assert out[0].startswith("cpu: ") and json.loads(out[-1])["wwscene_study"]["verdict"] == "draw"
+    out = out.strip().splitlines()
+    assert out[0].startswith("cpu: ") and json.loads(out[-1])[f"{label}_study"]["verdict"] == "draw"
+
+
+@pytest.mark.filterwarnings("ignore:invalid value encountered:RuntimeWarning")  # first_z: 0/0 when first == 2
+def test_wwscene_study_of_one_stream_on_both_sides(capsys, monkeypatch):
+    monkeypatch.setattr(chip_smoke, "WW_CHECK_REPLICATES", 2)
+    rec = chip_smoke.wwscene_study((100, 101), (100, 101), first=2, factor=1, device="cpu")
+    _one_stream_on_both_sides(rec, "wwscene", chip_smoke.WW_CHECK[2], capsys.readouterr().out)
+
+
+@pytest.mark.filterwarnings("ignore:invalid value encountered:RuntimeWarning")  # first_z: 0/0 when first == 2
+def test_card_cpu_study_of_one_stream_on_both_sides_two_perlin_spheres(capsys):
+    """The study of phase library's two_perlin_spheres check (its build, at
+    a quarter of its pixels) with the CPU on both sides."""
+    build, cfg = chip_smoke.library_check("two_perlin_spheres")
+    assert (cfg.width, cfg.height, cfg.spp) == (chip_smoke.SMALL, chip_smoke.SMALL, chip_smoke.SMALL_SPP)
+    cfg = dataclasses.replace(cfg, width=cfg.width // 2, height=cfg.height // 2)
+    rec = chip_smoke.card_cpu_study("two_perlin_spheres", build, cfg, (100, 101), (100, 101), 2, first=2, factor=1,
+                                    device="cpu")
+    assert rec["setup"] == f"two_perlin_spheres {cfg.width}x{cfg.height}, depth {chip_smoke.DEPTH}"
+    _one_stream_on_both_sides(rec, "two_perlin_spheres", chip_smoke.SMALL_SPP, capsys.readouterr().out)
 
 
 def test_tools_need_a_card_unless_asked_for_the_cpu():
@@ -128,10 +146,19 @@ def test_tools_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_tools_import_neither_jax_nor_the_jax_package():
+    """Nor the repository's scripts: the process runs from the repository's
+    root, where ``chip_smoke`` is importable, and takes ``tools/perf.py``'s
+    stand-in branch (no ``RT2022_SOURCE_DIR``), which writes the stand-ins
+    with the package's own ``tools/standins.py``."""
     code = ("import sys; import raytracer2022_tpu_torch.tools.perf, raytracer2022_tpu_torch.tools.scaling, "
             "raytracer2022_tpu_torch.tools.flagship, raytracer2022_tpu_torch.tools.golden, "
-            "raytracer2022_tpu_torch.tools.bench; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'raytracer2022_tpu', 'tools')]; "
+            "raytracer2022_tpu_torch.tools.bench, raytracer2022_tpu_torch.tools.standins; "
+            "assert raytracer2022_tpu_torch.tools.perf.main(['earth', '--size', '8x8', '--spp', '2', '--depth', '4', "
+            "'--device', 'cpu']) == 0; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'raytracer2022_tpu', 'tools', 'chip_smoke')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+    env = {k: v for k, v in os.environ.items() if k != "RT2022_SOURCE_DIR"}
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root, env=env,
+                         capture_output=True, text=True).stdout
+    assert '"scene": "earth"' in out and "stand-ins" in out, out
