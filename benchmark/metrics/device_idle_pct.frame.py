@@ -1,0 +1,10 @@
+"""``device_idle_pct.frame``: 100 minus the union of the device's activity
+over the wall time of the profiled launches, each from its own profiler
+timeline.  Moves ``Mpaths_s``."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
