@@ -2253,45 +2253,6 @@ def phase_multi_cards(smi, mesh_means=None) -> dict:
     return out
 
 
-SPANS = ("vertex.closest_hit", "closest_hit.dense", "closest_hit.packet_tree", "closest_hit.cluster_walk",
-         "closest_hit.media", "closest_hit.hit_details", "vertex.shading", "vertex.sampling")
-
-
-def profile_launch(label: str, run, unprofiled: dict, outdir: str) -> None:
-    """Run one launch under torch.profiler: device time by kernel, the
-    kernel time and host time inside each of the port's spans, and the
-    device busy share against the launch's unprofiled wall
-    (``unprofiled``, its launch-log record).  ``run()`` returns
-    ``(image, iterations)``."""
-    import os
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, iters = run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    table = events.table(sort_by="self_device_time_total", row_limit=25)
-    # kernel rows only: an operator's row repeats its kernels' device time,
-    # and a span's device-side row covers its first to last kernel, gaps
-    # included
-    busy = sum(e.self_device_time_total for e in events
-               if str(e.device_type).endswith("CUDA") and e.key not in SPANS) / 1e6
-    wall = unprofiled["seconds"]
-    os.makedirs(outdir, exist_ok=True)
-    with open(os.path.join(outdir, f"kernels_{label}.txt"), "w") as f:
-        f.write(table)
-    print(table)
-    for e in events:
-        if e.key in SPANS and e.cpu_time_total > 0:  # the host-side row
-            print(f"span {label} {e.key}: calls {e.count}, kernel time {e.device_time_total / 1e6:.3f} s "
-                  f"({100 * e.device_time_total / 1e6 / max(busy, 1e-9):.1f}% of busy), host {e.cpu_time_total / 1e6:.3f} s "
-                  f"(profiled)", flush=True)
-    print(f"profile {label}: launch 0 ({unprofiled['lanes']} lanes, iterations {iters}): device busy "
-          f"{busy:.3f} s of {wall:.3f} s unprofiled wall ({100 * busy / wall:.1f}%)", flush=True)
-
-
 def main(argv=None) -> int:
     import argparse
     import json
@@ -2305,8 +2266,6 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--spp", type=int, default=SPP, help="samples per pixel of the mesh and cornell_box renders")
-    ap.add_argument("--profile", default=None,
-                    help="profile one mesh and one final_scene launch; write their kernel tables here")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2319,8 +2278,7 @@ def main(argv=None) -> int:
     from raytracer2022_tpu_torch.ops import bvh8 as bvh8_mod
     from raytracer2022_tpu_torch.ops.bvh8 import traverse_bvh8, traverse_bvh8_plain
     from raytracer2022_tpu_torch.render.camera import make_camera
-    from raytracer2022_tpu_torch.render.integrator import TraceConfig
-    from raytracer2022_tpu_torch.render.renderer import MAX_SPP_SEQ, RenderConfig, render_batch_regen, step_generator
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig
     from raytracer2022_tpu_torch.scene.builder import SceneBuilder
     from raytracer2022_tpu_torch.utils.imageio import read_png
 
@@ -2522,21 +2480,6 @@ def main(argv=None) -> int:
         "flagship": {k: flag[k] for k in ("runs", "mae", "launches")},
         "card": smi,
     }}), flush=True)
-
-    if args.profile:
-        # launch 0 of the mesh and of the final_scene render again under
-        # torch.profiler: the same generator, strip and samples (one lane
-        # per pixel, the first 436 rows, up to 32 sequential samples)
-        tcfg = TraceConfig(max_depth=DEPTH, background=(0.0, 0.0, 0.0))
-        rows = LANES // WIDTH
-
-        def launch0(scene, camera, spp):
-            return render_batch_regen(scene, camera, step_generator(0, 0, dev), WIDTH, HEIGHT, 1,
-                                      min(spp, MAX_SPP_SEQ), tcfg, rows=rows, return_iters=True)
-
-        profile_launch("mesh", lambda: launch0(mesh, cam, args.spp), launch_log[0], args.profile)
-        profile_launch("final_scene", lambda: launch0(final["scene"], final["cam"], FINAL_SPP),
-                       final["log"][0], args.profile)
 
     s1 = k1["S1"]
     kernels = [{

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from ..scene.types import BOX, MEDIUM, MSPHERE, RECT, RING, SPHERE, TRIANGLE, SceneData
-from ..utils.profiling import span
+from ..utils.profiling import host_sync, span
 from .shade import shade_for_mats
 from .vecmath import cross, dot, safe_div, scale, vec3
 
@@ -423,7 +423,7 @@ def traverse_clusters(
     for k in range(n_clusters):
         # es is sorted per lane and t_best only falls: once no lane can
         # improve in round k, none can in a later round
-        idx = torch.nonzero(es[k] < t_best).squeeze(1)
+        idx = host_sync(torch.nonzero, es[k] < t_best).squeeze(1)
         n_k = idx.shape[0]
         if n_k == 0:
             break

@@ -24,7 +24,6 @@ the camera.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import torch
@@ -35,6 +34,7 @@ from ..render.camera import Camera
 from ..render.integrator import derive_seed, step_generator
 from ..render.renderer import RenderConfig, render_batch, render_batch_regen, render_batch_regen_diff
 from ..scene.types import SceneData
+from ..utils.profiling import launch_record, span
 
 AXIS = "chips"
 CAMERA_LEAVES = tuple(f.name for f in dataclasses.fields(Camera))
@@ -119,7 +119,8 @@ def render_regen_shard(
     all ranks: ``cfg.spp`` rounded up, no divisibility needed.  Strip ``s``
     draws from ``step_generator(derive_seed(cfg.seed, rank), s)``.
     ``launch_log``, when given, receives each strip's lane count,
-    iteration counts and wall seconds (synchronised on CUDA)."""
+    iteration counts, wall seconds (synchronised on CUDA) and host record
+    (:func:`utils.profiling.launch_record`)."""
     spp_par, spp_seq, rows_per = regen_split(cfg, world)
     seed = derive_seed(cfg.seed, rank)
     tcfg = cfg.trace_cfg()
@@ -128,16 +129,14 @@ def render_regen_shard(
     for s in range(-(-cfg.height // rows_per)):
         r0 = s * rows_per
         rs = min(rows_per, cfg.height - r0)
-        t0 = time.perf_counter()
-        part, iters = render_batch_regen(
-            scene, camera, step_generator(seed, s, device), cfg.width, cfg.height, spp_par, spp_seq, tcfg,
-            row0=r0, rows=rs, return_iters=True,
-        )
-        total[:, r0 : r0 + rs, :] += part
-        if launch_log is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            launch_log.append({"lanes": rs * cfg.width * spp_par, **iters, "seconds": time.perf_counter() - t0})
+        with launch_record(launch_log, device) as entry:
+            part, iters = render_batch_regen(
+                scene, camera, step_generator(seed, s, device), cfg.width, cfg.height, spp_par, spp_seq, tcfg,
+                row0=r0, rows=rs, return_iters=True,
+            )
+            with span("regen.accumulate"):
+                total[:, r0 : r0 + rs, :] += part
+            entry.update(lanes=rs * cfg.width * spp_par, **iters)
     return total, world * spp_par * spp_seq
 
 
@@ -154,7 +153,10 @@ def render_sharded_regen_sum(
     (:func:`render_regen_shard`)."""
     rank, world = _rank_world(mesh)
     total, n = render_regen_shard(scene, camera, cfg, rank, world, launch_log=launch_log)
-    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    # asynchronous on the card (NCCL), so not a counted sync; the span names
+    # its kernel in a device trace
+    with span("shard.all_reduce"):
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group())
     return total, n
 
 

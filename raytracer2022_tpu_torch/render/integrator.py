@@ -9,9 +9,12 @@ Forward: :func:`trace_regen` is the path regeneration wavefront with three
 schedules (:class:`Schedule`): the global sample pool, the pixel pool and
 per-lane quotas, each finished by N/4 -> N/16 narrow drains, and an
 optional per-bounce ray sort.  Each of its ``while`` conditions reads one
-or two counts on the host, so every iteration costs one device
-synchronisation.  :func:`measure_regen_handoff` runs the pixel-pool
-schedule forward to find its drain handoff.
+or two counts on the host (:func:`utils.profiling.host_sync`), so every
+iteration costs one device synchronisation; the counts also give the
+launch record's lane occupancy (:func:`utils.profiling.count_lanes`).
+The scheduler's own work runs in ``regen.*`` spans.
+:func:`measure_regen_handoff` runs the pixel-pool schedule forward to
+find its drain handoff.
 
 Differentiable (``torch.autograd``): :func:`trace`, the fixed-depth bounce
 loop, and :func:`trace_regen_diff`, the regeneration schedule over a fixed
@@ -43,7 +46,7 @@ from ..ops.sampling import cos_pdf_value, cosine_about_normal, uniform
 from ..ops.sort import ray_sort_key, sort_by_key
 from ..ops.vecmath import dot, scale, to_unit, vec3
 from ..scene.types import ISOTROPIC, LAMBERTIAN, SceneData
-from ..utils.profiling import span
+from ..utils.profiling import count_lanes, host_sync, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,45 +161,46 @@ def _eval_vertex(
             new_dir = cos_dir
             pdf_val = cos_pdf_value(new_dir, to_unit(hit.normal))
 
-    spdf = scattering_pdf_lambertian(hit.normal, new_dir)
-    lamb = shade.mat_kind == LAMBERTIAN
+    with span("vertex.update"):
+        spdf = scattering_pdf_lambertian(hit.normal, new_dir)
+        lamb = shade.mat_kind == LAMBERTIAN
 
-    miss = alive & ~hit.hit
-    absorb = alive & hit.hit & ~sc.has_scatter
-    specular = alive & hit.hit & sc.has_scatter & sc.is_specular
-    diffuse = alive & hit.hit & sc.has_scatter & ~sc.is_specular & lamb
-    pdf_ok = pdf_val > 0.0  # NaN compares False
-    diffuse = diffuse & pdf_ok
+        miss = alive & ~hit.hit
+        absorb = alive & hit.hit & ~sc.has_scatter
+        specular = alive & hit.hit & sc.has_scatter & sc.is_specular
+        diffuse = alive & hit.hit & sc.has_scatter & ~sc.is_specular & lamb
+        pdf_ok = pdf_val > 0.0  # NaN compares False
+        diffuse = diffuse & pdf_ok
 
-    radiance_add = torch.where(miss[None], throughput * _background(cfg, d), 0.0)
-    radiance_add = radiance_add + torch.where((absorb | diffuse)[None], throughput * em, 0.0)
+        radiance_add = torch.where(miss[None], throughput * _background(cfg, d), 0.0)
+        radiance_add = radiance_add + torch.where((absorb | diffuse)[None], throughput * em, 0.0)
 
-    w_diffuse = sc.attenuation * (spdf / torch.where(diffuse & pdf_ok, pdf_val, 1.0))[None]
-    throughput = torch.where(
-        specular[None],
-        throughput * sc.attenuation,
-        torch.where(diffuse[None], throughput * w_diffuse, throughput),
-    )
+        w_diffuse = sc.attenuation * (spdf / torch.where(diffuse & pdf_ok, pdf_val, 1.0))[None]
+        throughput = torch.where(
+            specular[None],
+            throughput * sc.attenuation,
+            torch.where(diffuse[None], throughput * w_diffuse, throughput),
+        )
 
-    next_dir = torch.where(specular[None], sc.spec_dir, new_dir)
-    next_tm = torch.where(specular, sc.spec_time, tm)
-    if cfg.spawn_eps > 0.0:
-        # origin offset along the face normal toward the outgoing side
-        is_surface = shade.mat_kind != ISOTROPIC
-        eps = cfg.spawn_eps * torch.clamp(torch.abs(hit.p).amax(dim=0), min=1.0)
-        side = torch.sign(dot(hit.normal, next_dir))
-        new_o = hit.p + scale(hit.normal, eps * side * is_surface.to(eps.dtype))
-    else:
-        new_o = hit.p
+        next_dir = torch.where(specular[None], sc.spec_dir, new_dir)
+        next_tm = torch.where(specular, sc.spec_time, tm)
+        if cfg.spawn_eps > 0.0:
+            # origin offset along the face normal toward the outgoing side
+            is_surface = shade.mat_kind != ISOTROPIC
+            eps = cfg.spawn_eps * torch.clamp(torch.abs(hit.p).amax(dim=0), min=1.0)
+            side = torch.sign(dot(hit.normal, next_dir))
+            new_o = hit.p + scale(hit.normal, eps * side * is_surface.to(eps.dtype))
+        else:
+            new_o = hit.p
 
-    return _Vertex(
-        radiance_add=radiance_add,
-        cont=specular | diffuse,
-        o=new_o,
-        d=next_dir,
-        tm=next_tm,
-        throughput=throughput,
-    )
+        return _Vertex(
+            radiance_add=radiance_add,
+            cont=specular | diffuse,
+            o=new_o,
+            d=next_dir,
+            tm=next_tm,
+            throughput=throughput,
+        )
 
 
 def _first_true(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -282,37 +286,39 @@ def _regen_step(scene, cfg, gen, gen_rays, lanes: _Lanes, reserve=None):
     pool's drains): no lane starts a sample and no ray is generated."""
     o, d, tm, th, rad, need, alive, depth, pix = lanes
     vx = _eval_vertex(scene, cfg, o, d, tm, th, alive, gen, recompute_t=False)  # forward only
-    rad = rad + vx.radiance_add  # masked by `alive`
-    depth = depth + 1
-    cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
-    if gen_rays is None:
-        return lanes._replace(
-            o=torch.where(cont[None], vx.o, o),
-            d=torch.where(cont[None], vx.d, d),
-            tm=torch.where(cont, vx.tm, tm),
-            th=torch.where(cont[None], vx.throughput, th),
+    with span("regen.update"):
+        rad = rad + vx.radiance_add  # masked by `alive`
+        depth = depth + 1
+        cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
+        if gen_rays is None:
+            return lanes._replace(
+                o=torch.where(cont[None], vx.o, o),
+                d=torch.where(cont[None], vx.d, d),
+                tm=torch.where(cont, vx.tm, tm),
+                th=torch.where(cont[None], vx.throughput, th),
+                rad=rad,
+                alive=cont,
+                depth=depth,
+            )
+        finished = alive & ~cont
+        if reserve is None:
+            start = finished & (need > 0)
+            need = need - start.to(need.dtype)
+        else:
+            start = reserve(finished | ~alive)
+        with span("regen.rays"):
+            o_new, d_new, tm_new = gen_rays(gen, pix)
+        return _Lanes(
+            o=torch.where(start[None], o_new, torch.where(cont[None], vx.o, o)),
+            d=torch.where(start[None], d_new, torch.where(cont[None], vx.d, d)),
+            tm=torch.where(start, tm_new, torch.where(cont, vx.tm, tm)),
+            th=torch.where(start[None], 1.0, torch.where(cont[None], vx.throughput, th)),
             rad=rad,
-            alive=cont,
-            depth=depth,
+            need=need,
+            alive=cont | start,
+            depth=torch.where(start, 0, depth),
+            pix=pix,
         )
-    finished = alive & ~cont
-    if reserve is None:
-        start = finished & (need > 0)
-        need = need - start.to(need.dtype)
-    else:
-        start = reserve(finished | ~alive)
-    o_new, d_new, tm_new = gen_rays(gen, pix)
-    return _Lanes(
-        o=torch.where(start[None], o_new, torch.where(cont[None], vx.o, o)),
-        d=torch.where(start[None], d_new, torch.where(cont[None], vx.d, d)),
-        tm=torch.where(start, tm_new, torch.where(cont, vx.tm, tm)),
-        th=torch.where(start[None], 1.0, torch.where(cont[None], vx.throughput, th)),
-        rad=rad,
-        need=need,
-        alive=cont | start,
-        depth=torch.where(start, 0, depth),
-        pix=pix,
-    )
 
 
 def _regen_drains(scene, cfg, gen, gen_rays, lanes: _Lanes, it: int, max_iter: int):
@@ -325,21 +331,27 @@ def _regen_drains(scene, cfg, gen, gen_rays, lanes: _Lanes, it: int, max_iter: i
     stages, counts = [], []
     cur = lanes
     for width, stop in ((n // 4, n // 16), (n // 16, 0)):
-        perm = _first_true(cur.alive, width)
-        nxt = cur.take(perm)
+        with span("regen.compact"):
+            perm = _first_true(cur.alive, width)
+            nxt = cur.take(perm)
         j = 0
-        while it < max_iter and int(nxt.alive.sum()) > stop:
+        while it < max_iter:
+            live = host_sync(int, nxt.alive.sum())
+            if live <= stop:
+                break
+            count_lanes(live, width)
             nxt = _regen_step(scene, cfg, gen, gen_rays, nxt)
             it += 1
             j += 1
         stages.append((cur.rad, perm))
         counts.append(j)
         cur = nxt
-    rad = cur.rad
-    for outer, perm in reversed(stages):
-        outer = outer.clone()
-        outer[:, perm] = rad
-        rad = outer
+    with span("regen.compact"):
+        rad = cur.rad
+        for outer, perm in reversed(stages):
+            outer = outer.clone()
+            outer[:, perm] = rad
+            rad = outer
     return rad, counts
 
 
@@ -394,14 +406,16 @@ def _trace_lanes(scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par, pixel_pool, 
     )
     it = 0
     while it < max_iter:
-        n_live = int(lanes.alive.sum())
+        n_live = host_sync(int, lanes.alive.sum())
         if n_live == 0 or (narrow and n_live <= n2):
             break
+        count_lanes(n_live, n)
         lanes = _regen_step(scene, cfg, gen, gen_rays, lanes, reserve)
         if do_sort:
             # re-pack neighbouring lanes into coherent rays; every per-lane
             # state tensor follows the one permutation
-            lanes = _Lanes(*sort_by_key(ray_sort_key(lanes.o, lanes.d, wb[0], wb[1]), lanes))
+            with span("regen.sort"):
+                lanes = _Lanes(*sort_by_key(ray_sort_key(lanes.o, lanes.d, wb[0], wb[1]), lanes))
         it += 1
 
     iters = {"pool": it, "drain_n4": 0, "drain_n16": 0}
@@ -473,43 +487,46 @@ def _trace_global(scene, gen_rays, pix0, spp_seq, gen, cfg, spp_par):
 
     it = 0
     while it < max_iter:
-        n_work, rem = torch.stack([working.sum(), remaining]).tolist()
+        n_work, rem = host_sync(torch.Tensor.tolist, torch.stack([working.sum(), remaining]))
         go = n_work > 0 or rem > 0
         if narrow:
             # hand off once the pool is empty and the survivors fit in N/4
             go = go and (rem > 0 or n_work > n2)
         if not go:
             break
+        count_lanes(n_work, n)
         vx = _eval_vertex(scene, cfg, o, d, tm, throughput, working, gen, recompute_t=False)
-        depth = depth + 1
-        cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
-        finished = working & ~cont
+        with span("regen.update"):
+            depth = depth + 1
+            cont = vx.cont & (depth < cfg.max_depth)  # depth cap = black tail
+            finished = working & ~cont
 
-        sample_rad = sample_rad + vx.radiance_add
-        # each (slot, lane) pair is written once: a direct indexed write
-        store[:, torch.where(finished, slots, s_max), lane] = sample_rad
-        slots = slots + finished
-        sample_rad = torch.where(finished[None], 0.0, sample_rad)
-        # reserve pool samples for idle or just-finished lanes with slot room
-        want = (finished | ~working) & (slots < s_max)
-        wanti = want.to(torch.int64)
-        rank = torch.cumsum(wanti, dim=0) - wanti
-        start = want & (rank < remaining)
-        pix = torch.where(start, (drawn + rank) % n_pix, pix)
-        n_started = start.sum()
-        pix_map[torch.where(start, slots, s_max), lane] = pix
-        working = cont | start
-        remaining = remaining - n_started
-        drawn = drawn + n_started
+            sample_rad = sample_rad + vx.radiance_add
+            # each (slot, lane) pair is written once: a direct indexed write
+            store[:, torch.where(finished, slots, s_max), lane] = sample_rad
+            slots = slots + finished
+            sample_rad = torch.where(finished[None], 0.0, sample_rad)
+            # reserve pool samples for idle or just-finished lanes with slot room
+            want = (finished | ~working) & (slots < s_max)
+            wanti = want.to(torch.int64)
+            rank = torch.cumsum(wanti, dim=0) - wanti
+            start = want & (rank < remaining)
+            pix = torch.where(start, (drawn + rank) % n_pix, pix)
+            n_started = start.sum()
+            pix_map[torch.where(start, slots, s_max), lane] = pix
+            working = cont | start
+            remaining = remaining - n_started
+            drawn = drawn + n_started
 
-        o_new, d_new, tm_new = gen_rays(gen, pix)
-        o = torch.where(start[None], o_new, torch.where(cont[None], vx.o, o))
-        d = torch.where(start[None], d_new, torch.where(cont[None], vx.d, d))
-        tm = torch.where(start, tm_new, torch.where(cont, vx.tm, tm))
-        throughput = torch.where(
-            start[None], 1.0, torch.where(cont[None], vx.throughput, throughput)
-        )
-        depth = torch.where(start, 0, depth)
+            with span("regen.rays"):
+                o_new, d_new, tm_new = gen_rays(gen, pix)
+            o = torch.where(start[None], o_new, torch.where(cont[None], vx.o, o))
+            d = torch.where(start[None], d_new, torch.where(cont[None], vx.d, d))
+            tm = torch.where(start, tm_new, torch.where(cont, vx.tm, tm))
+            throughput = torch.where(
+                start[None], 1.0, torch.where(cont[None], vx.throughput, throughput)
+            )
+            depth = torch.where(start, 0, depth)
         it += 1
 
     vals = store[:, :s_max].reshape(3, -1)
@@ -610,7 +627,7 @@ def measure_regen_handoff(
             depth=torch.zeros((n,), dtype=torch.int32, device=dev),
             pix=pix0,
         )
-        while it < max_iter and int(lanes.alive.sum()) > max(n // 4, 1):
+        while it < max_iter and host_sync(int, lanes.alive.sum()) > max(n // 4, 1):
             lanes = _regen_step(scene, cfg, step_generator(seed, it + 1, dev), gen_rays, lanes, reserve)
             it += 1
     return it

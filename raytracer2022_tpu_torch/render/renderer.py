@@ -20,13 +20,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..scene.types import SceneData
+from ..utils.profiling import launch_record, span
 from .camera import Camera, get_rays
 from .film import tonemap_u8
 from .integrator import (
@@ -234,7 +234,8 @@ def render_sum_n(
     launch, atomically, and a rerun with the same configuration resumes
     from the last completed launch; a mismatched file restarts.
     ``launch_log``, when given, receives each launch's lane count,
-    iteration counts and wall seconds (synchronised on CUDA).  With
+    iteration counts and wall seconds (synchronised on CUDA), and the
+    launch's host record (:func:`utils.profiling.launch_record`).  With
     ``cfg.regen`` False the launches run :func:`render_batch` over the
     whole frame, ``batch`` samples per pixel each, without checkpoints.
     """
@@ -283,20 +284,16 @@ def render_sum_n(
             if launch < resume_from:
                 launch += 1
                 continue
-            t0 = time.perf_counter()
-            part, iters = render_batch_regen(
-                scene, camera, step_generator(cfg.seed, launch, device),
-                cfg.width, cfg.height, batch, chunk, tcfg, row0=r0, rows=rs,
-                return_iters=True,
-            )
-            total[:, r0 : r0 + rs, :] += part
-            launch += 1
-            if launch_log is not None:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                launch_log.append(
-                    {"lanes": rs * cfg.width * batch, **iters, "seconds": time.perf_counter() - t0}
+            with launch_record(launch_log, device) as entry:
+                part, iters = render_batch_regen(
+                    scene, camera, step_generator(cfg.seed, launch, device),
+                    cfg.width, cfg.height, batch, chunk, tcfg, row0=r0, rows=rs,
+                    return_iters=True,
                 )
+                with span("regen.accumulate"):
+                    total[:, r0 : r0 + rs, :] += part
+                entry.update(lanes=rs * cfg.width * batch, **iters)
+            launch += 1
             if checkpoint is not None:
                 # atomic write: a crash mid-save must not corrupt the resume
                 # state; savez keeps a name that already ends in .npz
@@ -317,17 +314,13 @@ def _render_fixed_depth(scene, camera, cfg: RenderConfig, batch: int, progress, 
     n_batches = -(-cfg.spp // batch)
     total = torch.zeros((3, cfg.height, cfg.width), dtype=torch.float32, device=device)
     for i in range(n_batches):
-        t0 = time.perf_counter()
-        total += render_batch(
-            scene, camera, derive_seed(cfg.seed, i), cfg.width, cfg.height, batch, tcfg,
-        )
-        if launch_log is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            launch_log.append(
-                {"lanes": cfg.width * cfg.height * batch, "bounces": cfg.max_depth,
-                 "seconds": time.perf_counter() - t0}
+        with launch_record(launch_log, device) as entry:
+            part = render_batch(
+                scene, camera, derive_seed(cfg.seed, i), cfg.width, cfg.height, batch, tcfg,
             )
+            with span("regen.accumulate"):
+                total += part
+            entry.update(lanes=cfg.width * cfg.height * batch, bounces=cfg.max_depth)
         if progress is not None:
             progress((i + 1) * batch, n_batches * batch)
     return total, n_batches * batch

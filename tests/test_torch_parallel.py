@@ -49,8 +49,9 @@ def _scene():
     return b.finalize(device="cpu"), make_camera(**cam_kw, device="cpu")
 
 
-def _regen_sum(scene, cam, cfg, world=WORLD):
-    """Sum over ``world`` ranks of render_regen_shard -> (sum, n, strips per rank)."""
+def _regen_sum(scene, cam, cfg, world=WORLD, logs=None):
+    """Sum over ``world`` ranks of render_regen_shard -> (sum, n, strips per
+    rank); ``logs`` receives each rank's launch log."""
     total, ns, strips = 0, set(), set()
     for r in range(world):
         log = []
@@ -58,6 +59,8 @@ def _regen_sum(scene, cam, cfg, world=WORLD):
         total = total + part
         ns.add(n)
         strips.add(len(log))
+        if logs is not None:
+            logs.append(log)
     assert len(ns) == 1 and len(strips) == 1
     return total.numpy(), ns.pop(), strips.pop()
 
@@ -152,6 +155,53 @@ def test_spp_must_divide_over_ranks(entry):
             fit_step_fn(cfg, mesh=_fake_mesh(2))
     _, n, _ = _regen_sum(scene, cam, cfg, world=2)
     assert n == 8
+
+
+def test_regen_shard_strips_carry_the_launch_record():
+    """World 2, three strips a rank: every strip's entry carries its rank's
+    host record (render_regen_shard opens it as render_sum_n does), and
+    the record changes no rendered number."""
+    kw = dict(width=12, height=12, spp=16, max_depth=4, background=(0, 0, 0), max_rays_per_batch=12 * 4)
+    scene, cam = _scene()
+    logs = []
+    total, n, strips = _regen_sum(scene, cam, RenderConfig(**kw), world=2, logs=logs)
+    assert len(logs) == 2 and strips == 3
+    for log in logs:
+        for e in log:
+            iters = e["pool"] + e["drain_n4"] + e["drain_n16"]
+            assert e["syncs"] >= iters > 0 and 0 < e["live_lanes"] <= e["wavefront_lanes"]
+            assert sum(e["span_self_s"].values()) + e["sync_wait_s"] <= e["seconds"]
+            assert e["span_calls"]["vertex.closest_hit"] == iters and e["span_calls"]["regen.accumulate"] == 1
+    bare = sum(render_regen_shard(scene, cam, RenderConfig(**kw), r, 2)[0] for r in range(2)).numpy()
+    np.testing.assert_array_equal(total, bare)
+
+
+def test_sharded_all_reduce_runs_in_its_span():
+    """A one-rank gloo group: render_sharded_regen_sum's all_reduce is a
+    ``shard.all_reduce`` event under the profiler, outside every strip's
+    record, and the strips' entries carry their records."""
+    import socket
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer2022_tpu_torch.parallel.mesh import render_sharded_regen_sum
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert D.init_distributed(f"localhost:{port}", 1, 0, backend="gloo", device="cpu")
+    try:
+        scene, cam = _scene()
+        log: list = []
+        cfg = RenderConfig(width=8, height=8, spp=8, max_depth=3, background=(0, 0, 0))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            total, n = render_sharded_regen_sum(scene, cam, cfg, make_device_mesh("cpu"), launch_log=log)
+        names = {e.key for e in prof.key_averages()}
+        assert "shard.all_reduce" in names and n == 8 and total.shape == (3, 8, 8)
+        assert log and all("shard.all_reduce" not in e["span_calls"] and e["syncs"] > 0 for e in log)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert not torch.distributed.is_initialized()
 
 
 def test_no_process_group():
