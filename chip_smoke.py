@@ -1992,17 +1992,189 @@ def _fwd_bwd_cell(label: str, bundle, cam, cell, wrt, smi: str) -> dict:
     return rec
 
 
+# The shading tables' gradient kernel (ops/shade.py::table_grad,
+# csrc/table_grad.cu) at the fit's shapes: the wavefront of a 256x256 x 64
+# fit (spp_par 8, parallel/mesh.py::fit_regen_split) over cornell_book3's 4
+# materials and random_scene's ~480, one row (materials.param) and three
+# (textures.color).  Its bound: each id (8 B) and gradient (4 B a row) read
+# once, the table's gradient written once, at HBM_BYTES_PER_S.
+TABLE_GRAD_N = 256 * 256 * 8
+TABLE_GRAD_SHAPES = ((4, 1), (4, 3), (480, 1), (480, 3))  # (entries, rows)
+TABLE_GRAD_REPS = 50
+TABLE_GRAD_RTOL = 1e-5  # against the plain version in float64: the kernel sums in f32 in another order
+FIT_SHAPE = (256, 256, 64)  # cornell_book3.fit's frame and samples per pixel (benchmark/configs/cornell_book3.py)
+
+
+def table_grad_ids(n: int, t: int, gen):
+    """Ids as a fit's wavefront gives them: over a small table 70% of the
+    lanes on one entry (cornell_book3's white walls), else uniform."""
+    import torch
+
+    ids = torch.randint(0, t, (n,), generator=gen, device=gen.device)
+    if t > 8:
+        return ids
+    return torch.where(torch.rand(n, generator=gen, device=gen.device) < 0.7, torch.full_like(ids, 2), ids)
+
+
+def table_grad_at_shape(t: int, c: int, dev, smi: str) -> dict:
+    """The kernel on TABLE_GRAD_N lanes of positive gradients into a table
+    of ``t`` entries and ``c`` rows: equal bits on two launches, within
+    TABLE_GRAD_RTOL of the plain version in float64, its time by CUDA
+    events and by the profiler's device time, its bound, the plain
+    version's time and ``index_put_(accumulate=True)``'s (the call
+    PyTorch's backward of indexing makes) as ``library_ms``."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import shade
+
+    n = TABLE_GRAD_N
+    gen = torch.Generator(device=dev).manual_seed(10 * t + c)
+    idx = table_grad_ids(n, t, gen)
+    shape = (c, t) if c > 1 else (t,)
+    g = torch.rand(shape[:-1] + (n,), generator=gen, device=dev)
+    before = shade.TABLE_GRAD_LAUNCHES
+    got = shade.table_grad(g, idx, shape)
+    again = shade.table_grad(g, idx, shape)
+    torch.cuda.synchronize()
+    assert shade.TABLE_GRAD_LAUNCHES == before + 2, "table_grad did not count its launches"
+    assert torch.equal(got, again), f"table_grad ({c}, {t}): two launches on the same inputs differ"
+    want = shade.table_grad_plain(g.double(), idx, shape)
+    rel = float(((got.double() - want).abs() / want.abs().clamp_min(1e-30)).max())
+    assert rel <= TABLE_GRAD_RTOL, f"table_grad ({c}, {t}): relative error {rel:.3g} against the plain version"
+
+    def kernel():
+        shade.table_grad(g, idx, shape)
+
+    lib_idx = [idx] if c == 1 else [None, idx]
+    rec = {"n": n, "rows": c, "entries": t, "rel_err": rel,
+           "ms": _time_cuda(kernel, TABLE_GRAD_REPS),
+           "device_ms": _device_ms(kernel, TABLE_GRAD_REPS, match="table_grad"),
+           "plain_ms": _time_cuda(lambda: shade.table_grad_plain(g, idx, shape), TABLE_GRAD_REPS),
+           "library_ms": _time_cuda(lambda: torch.ops.aten.index_put_(torch.zeros(shape, device=dev), lib_idx, g,
+                                                                       True), TABLE_GRAD_REPS),
+           "bytes": n * 8 + n * c * 4 + c * t * 4}
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    print(f"table_grad {n} lanes into ({c}, {t}): {rec['ms']:.4f} ms a call by events, {rec['device_ms']:.4f} ms "
+          f"of device time ({100 * rec['share_of_bound']:.1f}% of its bound {1e3 * rec['bound_ms']:.2f} us, "
+          f"bytes); plain version {rec['plain_ms']:.4f} ms, index_put_(accumulate=True) {rec['library_ms']:.4f} "
+          f"ms; relative error {rel:.3g} against float64, two launches bit-equal ({smi})", flush=True)
+    return rec
+
+
+def count_table_grads(run) -> dict:
+    """``run() -> (loss, leaves)``: the gathers through ``gather_table``
+    while ``run`` builds the loss (``gathers``) and while the backward
+    recomputes its checkpoints (``recomputed``), the calls of
+    ``table_grad`` (``differentiated``) and ``TABLE_GRAD_LAUNCHES``
+    (``launches``) while ``torch.autograd.grad`` takes the leaves'
+    gradients."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import shade
+
+    calls = {"gathers": 0, "differentiated": 0}
+    gather, grad = shade.gather_table, shade.table_grad
+
+    def counting_gather(table, idx):
+        calls["gathers"] += 1
+        return gather(table, idx)
+
+    def counting_grad(*args):
+        calls["differentiated"] += 1
+        return grad(*args)
+
+    shade.gather_table, shade.table_grad = counting_gather, counting_grad
+    try:
+        loss, leaves = run()
+        forward = calls["gathers"]
+        before = shade.TABLE_GRAD_LAUNCHES
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+        launches = shade.TABLE_GRAD_LAUNCHES - before
+    finally:
+        shade.gather_table, shade.table_grad = gather, grad
+    return {"gathers": forward, "recomputed": calls["gathers"] - forward,
+            "differentiated": calls["differentiated"], "launches": launches}
+
+
+def fit_loss_run(bundle, cam, shape, n_iters: int, seed: int = 0):
+    """``run`` for :func:`count_table_grads`: ``fit_step_fn``'s regeneration
+    loss against a black target over ``shape`` (width, height, spp), with
+    ``materials.param`` and ``textures.color`` as the leaves."""
+    import torch
+
+    from raytracer2022_tpu_torch.parallel.mesh import fit_regen_split, with_params
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import render_batch_regen_diff
+
+    width, height, spp = shape
+    scene = bundle.scene
+
+    def run():
+        leaves = [scene.materials.param.detach().requires_grad_(), scene.textures.color.detach().requires_grad_()]
+        spp_par, spp_seq = fit_regen_split(spp)
+        img, cnt = render_batch_regen_diff(with_params(scene, *leaves), cam, seed, width, height, spp_par, spp_seq,
+                                           n_iters, TraceConfig(max_depth=DEPTH, background=bundle.background))
+        return torch.mean((img / torch.clamp(cnt, min=1)[None]) ** 2), leaves
+
+    return run
+
+
+def table_grad_fit_step(bundle, cam, smi: str) -> dict:
+    """The kernel in a ``cornell_book3``-shaped regeneration fit step
+    (FIT_SHAPE, depth 50, ``regen_iters_estimate``'s trip count): every
+    gather the backward differentiated launched it once (the last
+    iterations' gathers of ``materials.param`` reach no loss term, and
+    autograd leaves them out); then
+    ``TABLE_GRAD_LAUNCHES`` over one ``fit_step_fn`` step and the median
+    step time of three after a warm-up."""
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.ops import shade
+    from raytracer2022_tpu_torch.parallel.mesh import fit_regen_split, fit_step_fn
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, regen_iters_estimate
+
+    width, height, spp = FIT_SHAPE
+    rc = RenderConfig(width=width, height=height, spp=spp, max_depth=DEPTH, background=bundle.background)
+    n_iters = regen_iters_estimate(bundle.scene, cam, width, height, *fit_regen_split(spp), rc.trace_cfg())
+    counts = count_table_grads(fit_loss_run(bundle, cam, FIT_SHAPE, n_iters))
+    assert counts["launches"] == counts["differentiated"] > 0, \
+        f"the fit's backward did not launch table_grad once a gather it differentiated: {counts}"
+    step = fit_step_fn(rc, regen_iters=n_iters)
+    target = torch.zeros((3, height, width), device=bundle.scene.device)
+    scene, cam_k = bundle.scene, cam
+    times = []
+    for k in range(4):
+        before = shade.TABLE_GRAD_LAUNCHES
+        t0 = time.perf_counter()
+        scene, cam_k, loss = step(scene, cam_k, target, k)
+        float(loss)  # the step's end
+        times.append(time.perf_counter() - t0)
+        per_step = shade.TABLE_GRAD_LAUNCHES - before
+    rec = dict(counts, regen_iters=n_iters, launches_per_step=per_step, step_s=float(np.median(times[1:])))
+    assert per_step == counts["launches"], f"fit_step_fn launched table_grad {per_step} times, the loss {counts}"
+    print(f"table_grad in a cornell_book3-shaped fit step ({width}x{height} x {spp}, {n_iters} iterations): "
+          f"{counts['differentiated']} of {counts['gathers']} gathers differentiated ({counts['recomputed']} "
+          f"recomputed), {counts['launches']} launches; fit_step_fn: {per_step} launches a step, median step "
+          f"{rec['step_s']:.3f} s of 3 after a warm-up ({smi})", flush=True)
+    return rec
+
+
 def phase_diff(dev, smi) -> dict:
     """The differentiable path: K1 against the cluster walk under
     gradients, a central difference on the card, fwd+bwd at full width on
-    cornell_box and on the stand-in mesh through K1, the fit step, and the
-    fit demo."""
+    cornell_box and on the stand-in mesh through K1, the fit step, the
+    shading tables' gradient kernel at the fit's shapes and in a
+    cornell_book3-shaped fit step, and the fit demo."""
     import dataclasses
     import time
 
     import torch
 
     from raytracer2022_tpu_torch import fit
+    from raytracer2022_tpu_torch.cuda_build import build
     from raytracer2022_tpu_torch.ops import bvh8
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.integrator import TraceConfig
@@ -2013,6 +2185,10 @@ def phase_diff(dev, smi) -> dict:
     from raytracer2022_tpu_torch.tools import bench
 
     out = {}
+    t0 = time.perf_counter()
+    log = build("table_grad.cu")[1]  # the first gradient below launches it
+    print(f"table_grad kernel built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(log)
     # 1. K1 against the cluster walk: one gradient convention on the card
     scene, cam_kw = tri64_scene(SceneBuilder(), device=dev)
     cam = make_camera(**cam_kw, device=dev)
@@ -2099,7 +2275,11 @@ def phase_diff(dev, smi) -> dict:
     print(f"fit step {cell.width}x{cell.height} x {cell.spp_seq} spp, depth {cell.depth}: median "
           f"{out['fit_step_s']:.3f} s of {cell.reps} after a warm-up ({smi})", flush=True)
 
-    # 6. the fit demo through the regeneration integrator
+    # 6. the shading tables' gradient kernel
+    out["table_grad"] = {f"{c}x{t}": table_grad_at_shape(t, c, dev, smi) for t, c in TABLE_GRAD_SHAPES}
+    out["table_grad_fit"] = table_grad_fit_step(bundle, corn_cam, smi)
+
+    # 7. the fit demo through the regeneration integrator
     t0 = time.perf_counter()
     rc = fit.main(["--regen"])
     out["fit_demo_s"] = time.perf_counter() - t0
@@ -2473,6 +2653,7 @@ def main(argv=None) -> int:
         "fwd_bwd_cornell": {k: diff["cornell"][k] for k in diff_keys},
         "fwd_bwd_mesh": {k: diff["mesh"][k] for k in diff_keys},
         "fit_step_s": diff["fit_step_s"], "fit_demo_s": diff["fit_demo_s"], "multi": multi, "perf": perf_rec,
+        "table_grad_fit": diff["table_grad_fit"],
         "deep_render_s": deep["render_s"],
         "bench": bench_rec["line"],
         "wwscene": {k: assets[k] for k in ("seconds", "mpaths", "wall_mpaths", "spp", "launches", "decode_s", "small_s")},
@@ -2515,6 +2696,14 @@ def main(argv=None) -> int:
         "wwscene_render": {k: assets[k] for k in ("launches", "groups", "depth", "tree_memory", "spp")},
         "flagship_run": {"launches": flag["launches"], "spp": flag["runs"]["whole"]["spp"],
                          "rays_per_launch": flag["rays"]},
+    }, {
+        "name": "table_grad",
+        "route": "cuda",
+        "source": "raytracer2022_tpu_torch/csrc/table_grad.cu",
+        "replaces": None,  # PyTorch's backward of indexing; the JAX package's fetch was a one-hot contraction
+        "launches_per_fit_step": diff["table_grad_fit"]["launches_per_step"],
+        "max_rel_err": max(r["rel_err"] for r in diff["table_grad"].values()),
+        "shapes": diff["table_grad"],
     }]
     print(f"[smoke total: {time.perf_counter() - t_start:.1f} s]", flush=True)
     print(json.dumps({"kernels": kernels}))
