@@ -118,9 +118,9 @@ def render_regen_shard(
     (:func:`regen_split`) is the sample count per pixel of the sum over
     all ranks: ``cfg.spp`` rounded up, no divisibility needed.  Strip ``s``
     draws from ``step_generator(derive_seed(cfg.seed, rank), s)``.
-    ``launch_log``, when given, receives each strip's lane count,
-    iteration counts, wall seconds (synchronised on CUDA) and host record
-    (:func:`utils.profiling.launch_record`)."""
+    ``launch_log``, when given, receives each strip's ``rank``, lane
+    count, iteration counts, wall seconds (synchronised on CUDA) and host
+    record (:func:`utils.profiling.launch_record`)."""
     spp_par, spp_seq, rows_per = regen_split(cfg, world)
     seed = derive_seed(cfg.seed, rank)
     tcfg = cfg.trace_cfg()
@@ -136,7 +136,7 @@ def render_regen_shard(
             )
             with span("regen.accumulate"):
                 total[:, r0 : r0 + rs, :] += part
-            entry.update(lanes=rs * cfg.width * spp_par, **iters)
+            entry.update(rank=rank, lanes=rs * cfg.width * spp_par, **iters)
     return total, world * spp_par * spp_seq
 
 
@@ -150,13 +150,22 @@ def render_sharded_regen_sum(
     """The production multi-device render: the path-regeneration
     integrator (K1 on mesh scenes) with spp sharded over the mesh ->
     ``((3, H, W) radiance sum, n_samples)``, the same on every rank
-    (:func:`render_regen_shard`)."""
+    (:func:`render_regen_shard`).
+
+    ``launch_log``, when given, receives the strips' records and then the
+    collective's: ``collective`` ("all_reduce"), ``bytes`` (the sum's),
+    ``world``, and ``seconds`` from the call to the collective's end,
+    synchronised as a strip is.  On the last rank to arrive that is the
+    transfer; on the others the transfer and the wait for that rank.
+    Without a log nothing more is synchronised."""
     rank, world = _rank_world(mesh)
     total, n = render_regen_shard(scene, camera, cfg, rank, world, launch_log=launch_log)
-    # asynchronous on the card (NCCL), so not a counted sync; the span names
-    # its kernel in a device trace
-    with span("shard.all_reduce"):
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    with launch_record(launch_log, total.device) as entry:
+        # asynchronous on the card (NCCL), so not a counted sync; the span
+        # names its kernel in a device trace
+        with span("shard.all_reduce"):
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.get_group())
+        entry.update(collective="all_reduce", bytes=total.numel() * total.element_size(), world=world)
     return total, n
 
 

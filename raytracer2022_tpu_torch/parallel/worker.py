@@ -262,8 +262,9 @@ def run_task(args, mesh, device) -> dict:
         else:
             log: list = []
             total, n = render_sharded_regen_sum(scene, cam, cfg, mesh, launch_log=log)
-            out["iters"] = np.array([[rec["pool"], rec["drain_n4"], rec["drain_n16"]] for rec in log])
-            out["strip_seconds"] = np.array([rec["seconds"] for rec in log])
+            strips = [rec for rec in log if "collective" not in rec]
+            out["iters"] = np.array([[rec["pool"], rec["drain_n4"], rec["drain_n16"]] for rec in strips])
+            out["strip_seconds"] = np.array([rec["seconds"] for rec in strips])
         out.update(sum=total.cpu().numpy(), n=n)
     else:
         step = fit_step_fn(cfg, mesh=mesh, lr=args.lr, regen_iters=out.get("regen_iters"))

@@ -1,10 +1,12 @@
 """The port's multi-process path on the CPU: two ranks joined by gloo
 through ``parallel/worker.py::launch_local``.  Their results equal the sum
 (or mean) of the same ranks' shares computed in this process, both ranks
-end with the same sums and bit-identical parameters, and a rank that
-fails brings the launch down within its time limit (the counterpart of
+end with the same sums and bit-identical parameters, the sharded render
+logs its collective only when given a launch log, and a rank that fails
+brings the launch down within its time limit (the counterpart of
 tests/test_distributed.py)."""
 
+import json
 import os
 import sys
 import time
@@ -108,6 +110,103 @@ def test_sharded_fit_step_averages_gradients(tmp_path, task):
     lo = scene.materials.param.numel()
     color = res[0]["params"][-1][lo : lo + scene.textures.color.numel()]
     assert color.sum() < float(scene.textures.color.sum())
+
+
+RECORDS_RANK = """
+import argparse, json
+import numpy as np, torch
+import chip_smoke
+from raytracer2022_tpu_torch.parallel.distributed import init_distributed
+from raytracer2022_tpu_torch.parallel.mesh import make_device_mesh, render_regen_shard, render_sharded_regen_sum
+from raytracer2022_tpu_torch.parallel.worker import rank_path
+from raytracer2022_tpu_torch.render.camera import make_camera
+from raytracer2022_tpu_torch.render.renderer import RenderConfig
+from raytracer2022_tpu_torch.scene.builder import SceneBuilder
+from raytracer2022_tpu_torch.utils import profiling
+import torch.distributed as dist
+
+ap = argparse.ArgumentParser()
+ap.add_argument('out'); ap.add_argument('--coordinator'); ap.add_argument('--num-processes', type=int)
+ap.add_argument('--process-id', type=int)
+a = ap.parse_args()
+torch.set_num_threads(1)
+init_distributed(a.coordinator, a.num_processes, a.process_id, device='cpu')
+mesh = make_device_mesh('cpu')
+b = SceneBuilder()
+cam = make_camera(**chip_smoke.two_rect_scene(b), device='cpu')
+scene = b.finalize(device='cpu')
+cfg = RenderConfig(width=12, height=12, spp=8, max_depth=4, background=(0.0, 0.0, 0.0), max_rays_per_batch=12 * 4)
+opened = []
+
+class Counted(profiling.LaunchRecord):
+    def __init__(self):
+        super().__init__()
+        opened.append(1)
+
+profiling.LaunchRecord = Counted
+log = []
+logged, n_logged = render_sharded_regen_sum(scene, cam, cfg, mesh, launch_log=log)
+records_logged = len(opened)
+bare, n_bare = render_sharded_regen_sum(scene, cam, cfg, mesh)
+records_bare = len(opened) - records_logged
+# the shard's sum and one all_reduce with no record around it
+plain, n_plain = render_regen_shard(scene, cam, cfg, a.process_id, a.num_processes)
+dist.all_reduce(plain)
+np.savez(rank_path(a.out, a.process_id), logged=logged.numpy(), bare=bare.numpy(), plain=plain.numpy(),
+         n=[n_logged, n_bare, n_plain])
+with open(rank_path(a.out, a.process_id) + '.json', 'w') as f:
+    json.dump({'log': log, 'records_logged': records_logged, 'records_bare': records_bare}, f)
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_records(tmp_path_factory):
+    """One launch of two ranks, each rendering 12x12 x 8 in three strips
+    through ``render_sharded_regen_sum`` with a launch log, then without,
+    then as the shard's sum and a bare all_reduce -> each rank's sums and
+    records."""
+    out = str(tmp_path_factory.mktemp("records") / "records.npz")
+    launch_local(WORLD, [sys.executable, "-c", RECORDS_RANK, out], TIMEOUT_S)
+    res = []
+    for k in range(WORLD):
+        with np.load(rank_path(out, k)) as f:
+            rec = {key: f[key] for key in f.files}
+        with open(rank_path(out, k) + ".json") as f:
+            rec.update(json.load(f))
+        res.append(rec)
+    return res
+
+
+def test_sharded_regen_logs_its_collective_after_the_strips(sharded_records):
+    """With a launch log each rank logs its three strips, each with its
+    ``rank``, and then exactly one record of the all_reduce: its bytes
+    (3 x H x W x 4), the world and its seconds."""
+    for k, rec in enumerate(sharded_records):
+        log = rec["log"]
+        assert [r.get("collective") for r in log] == [None, None, None, "all_reduce"]
+        assert all(r["rank"] == k and r["lanes"] > 0 and "pool" in r for r in log[:-1])
+        last = log[-1]
+        assert last["bytes"] == 3 * 12 * 12 * 4 and last["world"] == WORLD and last["seconds"] > 0
+        assert "pool" not in last and rec["records_logged"] == 4
+
+
+def test_sharded_regen_without_a_log_is_unchanged(sharded_records):
+    """Without a log no record opens, and the sum is bit-identical to the
+    logged one and to the shard's sum with a bare all_reduce, the same on
+    both ranks, and equal to the sum of both shards computed here (rtol
+    1e-6)."""
+    scene, cam = _scene()
+    cfg = RenderConfig(width=12, height=12, spp=8, max_depth=4, background=(0.0, 0.0, 0.0),
+                       max_rays_per_batch=12 * 4)
+    parts = [render_regen_shard(scene, cam, cfg, r, WORLD) for r in range(WORLD)]
+    for rec in sharded_records:
+        assert rec["records_bare"] == 0
+        assert np.array_equal(rec["bare"], rec["logged"]) and np.array_equal(rec["bare"], rec["plain"])
+        assert np.array_equal(rec["bare"], sharded_records[0]["bare"])
+        assert list(rec["n"]) == [parts[0][1]] * 3
+        np.testing.assert_allclose(rec["bare"], (parts[0][0] + parts[1][0]).numpy(), rtol=1e-6, atol=0)
+    assert parts[0][0].sum() > 0
 
 
 def test_cli_ranks_write_one_image(tmp_path, monkeypatch):

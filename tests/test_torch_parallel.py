@@ -179,7 +179,8 @@ def test_regen_shard_strips_carry_the_launch_record():
 def test_sharded_all_reduce_runs_in_its_span():
     """A one-rank gloo group: render_sharded_regen_sum's all_reduce is a
     ``shard.all_reduce`` event under the profiler, outside every strip's
-    record, and the strips' entries carry their records."""
+    record and inside the collective's own, the log's last, and the
+    strips' entries carry their records."""
     import socket
 
     from torch.profiler import ProfilerActivity, profile
@@ -198,7 +199,9 @@ def test_sharded_all_reduce_runs_in_its_span():
             total, n = render_sharded_regen_sum(scene, cam, cfg, make_device_mesh("cpu"), launch_log=log)
         names = {e.key for e in prof.key_averages()}
         assert "shard.all_reduce" in names and n == 8 and total.shape == (3, 8, 8)
-        assert log and all("shard.all_reduce" not in e["span_calls"] and e["syncs"] > 0 for e in log)
+        strips, last = log[:-1], log[-1]
+        assert strips and all("shard.all_reduce" not in e["span_calls"] and e["syncs"] > 0 for e in strips)
+        assert last["collective"] == "all_reduce" and last["span_calls"] == {"shard.all_reduce": 1}
     finally:
         torch.distributed.destroy_process_group()
     assert not torch.distributed.is_initialized()
