@@ -2288,6 +2288,164 @@ def phase_diff(dev, smi) -> dict:
     return out
 
 
+MIS_LANES = 261_120  # a wwscene.frame strip's lanes: 2560 x 102
+MIS_REPS = 50
+MIS_RTOL = 1e-5  # the kernel against its plain version on the card, same variates
+MIS_FRAMES = {"wwscene": (2560, 1440), "cornell_box_book": (600, 600)}  # the benchmark's frames
+
+
+def _max0(x) -> float:
+    """The largest entry of ``x``, 0 for an empty tensor."""
+    return float(x.max()) if x.numel() else 0.0
+
+
+def mis_at_first_vertex(name: str, bundle, dev, smi: str) -> dict:
+    """The sampling kernel on the first vertex of ``name``'s frame: the
+    hit points and normals of MIS_LANES camera rays spread over it, one
+    variate block; the kernel against its plain version on the hit lanes
+    (NaN on the same lanes, directions within MIS_RTOL of their norm, pdfs
+    within MIS_RTOL relative), its device time by the profiler beside its
+    byte bound, and the plain version's time by CUDA events."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import mis
+    from raytracer2022_tpu_torch.ops.intersect import closest_hit
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import _regen_gen_rays
+
+    width, height = MIS_FRAMES[name]
+    scene = bundle.scene
+    cam = make_camera(**bundle.camera_kwargs, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    pix = torch.arange(MIS_LANES, device=dev) * max(width * height // MIS_LANES, 1) % (width * height)
+    with torch.no_grad():
+        o, d, tm = _regen_gen_rays(cam, width, height)(gen, pix)
+        hit, _ = closest_hit(scene, o, d, tm, T_MIN, float("inf"), gen, False)
+    p, nrm = hit.p.contiguous(), hit.normal.contiguous()
+    k = mis.variate_rows(len(scene.stats.light_ids))
+    u = torch.rand((k, MIS_LANES), generator=gen, device=dev)
+    before = mis.LAUNCHES
+    got = mis.mis_sample(scene, p, nrm, u)
+    want = mis.mis_sample_plain(scene, p, nrm, u)
+    torch.cuda.synchronize()
+    assert mis.LAUNCHES == before + 1, "mis_sample did not count its launch"
+    on = hit.hit
+    nan = torch.isnan(want[1])
+    assert torch.equal(torch.isnan(got[1])[on], nan[on]), f"{name}: the kernel's NaN pdfs are not the plain version's"
+    ok = on & ~nan
+    dir_abs = (got[0] - want[0]).abs()[:, on]
+    dir_rel = ((got[0] - want[0]).norm(dim=0) / want[0].norm(dim=0))[on]
+    pdf_abs = (got[1] - want[1]).abs()[ok]
+    pdf_rel = pdf_abs / want[1].abs()[ok].clamp_min(1e-30)
+    rec = {"lanes": MIS_LANES, "hit_lanes": int(on.sum()), "nan_pdf_lanes": int((nan & on).sum()), "rows": k,
+           "dir_max_abs_err": _max0(dir_abs), "dir_max_rel_err": _max0(dir_rel),
+           "pdf_max_abs_err": _max0(pdf_abs), "pdf_max_rel_err": _max0(pdf_rel),
+           "dir_bit_equal_share": float((got[0] == want[0]).all(dim=0)[on].float().mean()),
+           "pdf_bit_equal_share": float((got[1] == want[1])[ok].float().mean())}
+    assert rec["dir_max_rel_err"] <= MIS_RTOL and rec["pdf_max_rel_err"] <= MIS_RTOL, f"{name}: {rec}"
+
+    def kernel():
+        mis.mis_sample(scene, p, nrm, u)
+
+    rec.update(ms=_time_cuda(kernel, MIS_REPS), device_ms=_device_ms(kernel, MIS_REPS, match="mis_sample"),
+               plain_ms=_time_cuda(lambda: mis.mis_sample_plain(scene, p, nrm, u), MIS_REPS),
+               bytes=MIS_LANES * (12 + 12 + 4 * k + 16))
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    print(f"mis_sample {name} first vertex, {MIS_LANES} lanes ({rec['hit_lanes']} hit, {k} variate rows): max abs "
+          f"err dir {rec['dir_max_abs_err']:.3g} pdf {rec['pdf_max_abs_err']:.3g}, max rel err dir "
+          f"{rec['dir_max_rel_err']:.3g} pdf {rec['pdf_max_rel_err']:.3g}, bit-equal dir "
+          f"{rec['dir_bit_equal_share']:.5f} pdf {rec['pdf_bit_equal_share']:.5f}; {rec['ms']:.4f} ms a call by "
+          f"events, {1e3 * rec['device_ms']:.2f} us of device time ({100 * rec['share_of_bound']:.1f}% of its "
+          f"bound {1e3 * rec['bound_ms']:.2f} us, bytes); plain version {rec['plain_ms']:.4f} ms ({smi})", flush=True)
+    return rec
+
+
+def mis_in_a_frame(name: str, bundle, dev, smi: str, spp: int = 2) -> dict:
+    """Launches of the sampling kernel in a logged ``render_sum_n`` of
+    ``name``'s frame at ``spp`` samples: one a vertex, so each launch's
+    ``sampling_kernel_calls`` equals its ``vertex.sampling`` spans."""
+    import time
+
+    import torch
+
+    from raytracer2022_tpu_torch.ops import mis
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
+
+    width, height = MIS_FRAMES[name]
+    cam = make_camera(**bundle.camera_kwargs, device=dev)
+    cfg = RenderConfig(width=width, height=height, spp=spp, max_depth=DEPTH, background=bundle.background)
+    log: list = []
+    before = mis.LAUNCHES
+    t0 = time.perf_counter()
+    render_sum_n(bundle.scene, cam, cfg, launch_log=log)
+    torch.cuda.synchronize()
+    rec = {"launches": mis.LAUNCHES - before, "seconds": time.perf_counter() - t0, "spp": spp,
+           "vertices": sum(e["span_calls"]["vertex.sampling"] for e in log),
+           "recorded": sum(e["sampling_kernel_calls"] for e in log)}
+    assert rec["launches"] == rec["recorded"] == rec["vertices"] > 0, f"{name}: {rec}"
+    print(f"mis_sample in a {name} render {width}x{height} x {spp} spp: {rec['launches']} launches, one a vertex "
+          f"in every launch record, {rec['seconds']:.2f} s ({smi})", flush=True)
+    return rec
+
+
+def mis_in_a_fit_step(bundle, dev, smi: str) -> dict:
+    """The sampling kernel over one ``cornell_book3``-shaped fit step
+    (FIT_SHAPE, depth 50): none, the render runs with gradients (the trip
+    count's estimate, under ``no_grad``, takes it)."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import mis
+    from raytracer2022_tpu_torch.parallel.mesh import fit_regen_split, fit_step_fn
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.renderer import RenderConfig, regen_iters_estimate
+
+    width, height, spp = FIT_SHAPE
+    cam = make_camera(**bundle.camera_kwargs, device=dev)
+    rc = RenderConfig(width=width, height=height, spp=spp, max_depth=DEPTH, background=bundle.background)
+    before = mis.LAUNCHES
+    n_iters = regen_iters_estimate(bundle.scene, cam, width, height, *fit_regen_split(spp), rc.trace_cfg())
+    rec = {"regen_iters": n_iters, "estimate_launches": mis.LAUNCHES - before}
+    step = fit_step_fn(rc, regen_iters=n_iters)
+    before = mis.LAUNCHES
+    _, _, loss = step(bundle.scene, cam, torch.zeros((3, height, width), device=dev), 0)
+    float(loss)
+    rec["launches_per_step"] = mis.LAUNCHES - before
+    assert rec["launches_per_step"] == 0, f"a fit step launched mis_sample: {rec}"
+    print(f"mis_sample in a cornell_book3-shaped fit step ({width}x{height} x {spp}, {n_iters} iterations): "
+          f"{rec['launches_per_step']} launches a step, {rec['estimate_launches']} in the trip count's estimate "
+          f"({smi})", flush=True)
+    return rec
+
+
+def phase_sampling(dev, smi) -> dict:
+    """The vertex's sampling kernel (``csrc/mis_sample.cu``): its build, and
+    on wwscene (stand-in assets) and cornell_box_book (book 3's Cornell
+    box, the benchmark's cornell_book3) the kernel against its plain version
+    at the first vertex, its launches in a frame render, and none in a fit
+    step."""
+    import os
+    import tempfile
+    import time
+
+    from raytracer2022_tpu_torch.cuda_build import build
+    from raytracer2022_tpu_torch.scene.library import SCENES
+
+    t0 = time.perf_counter()
+    log = build("mis_sample.cu")[1]
+    print(f"mis_sample kernel built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(log)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, source_dir_env(os.path.join(tmp, "source")) as src:
+        write_stand_in_assets(src)
+        for name in MIS_FRAMES:
+            bundle = SCENES[name](device=dev)
+            out[name] = dict(mis_at_first_vertex(name, bundle, dev, smi), frame=mis_in_a_frame(name, bundle, dev, smi))
+    out["fit"] = mis_in_a_fit_step(SCENES["cornell_box_book"](device=dev), dev, smi)
+    return out
+
+
 MULTI_TIMEOUT_S = 300  # each launch of phase multi; a rank that fails ends it at once
 MULTI_FIT_STEPS = 4  # one warm-up, then the median of 3
 
@@ -2641,6 +2799,9 @@ def main(argv=None) -> int:
     diff = phase_diff(dev, smi)
     print(f"[phase diff: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
+    sampling = phase_sampling(dev, smi)
+    print(f"[phase sampling: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
     multi = phase_multi(dev, smi, mesh_means, diff["cornell"]["fwd_bwd_s"])
     print(f"[phase multi: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     diff_keys = ("n_iters", "n_drain", "estimate_s", "fwd_bwd_s", "fwd_s", "fwd_bwd_mpaths", "fwd_mpaths",
@@ -2704,6 +2865,16 @@ def main(argv=None) -> int:
         "launches_per_fit_step": diff["table_grad_fit"]["launches_per_step"],
         "max_rel_err": max(r["rel_err"] for r in diff["table_grad"].values()),
         "shapes": diff["table_grad"],
+    }, {
+        "name": "mis_sample",
+        "route": "cuda",
+        "source": "raytracer2022_tpu_torch/csrc/mis_sample.cu",
+        "replaces": None,  # the JAX package left the vertex's mixture sample to XLA's fusion
+        "launches_per_frame_render": {name: sampling[name]["frame"]["launches"] for name in MIS_FRAMES},
+        "launches_per_fit_step": sampling["fit"]["launches_per_step"],
+        "max_rel_err": max(max(sampling[name]["dir_max_rel_err"], sampling[name]["pdf_max_rel_err"])
+                           for name in MIS_FRAMES),
+        "shapes": {name: {k: v for k, v in sampling[name].items() if k != "frame"} for name in MIS_FRAMES},
     }]
     print(f"[smoke total: {time.perf_counter() - t_start:.1f} s]", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,8 @@ hittable/mod.rs:121-132) for sphere and rect lights.
     mean over L (sphere solid-angle pdf sphere.rs:75-83, rect area pdf
     aarect.rs:74-83).
   * ``sample_lights``: a uniform light pick per ray, then the picked kind's
-    sampler (sphere cone sphere.rs:85-90, rect point aarect.rs:85-93).
+    sampler (sphere cone sphere.rs:85-90, rect point aarect.rs:85-93);
+    ``light_directions`` is the same of variates drawn beforehand.
 
 Light ids are static (``SceneStats``), so light rows are taken by slicing
 with Python ints: no index tensor is copied to the device per call.
@@ -22,7 +23,7 @@ import torch
 
 from ..scene.types import RECT, SPHERE
 from .intersect import _rect_t, _sphere_t
-from .sampling import to_sphere, uniform
+from .sampling import sphere_cone_local, uniform
 from .vecmath import length_sqr, masked_sqrt, onb_from_w, onb_local, vec3
 
 PI = math.pi
@@ -82,16 +83,32 @@ def lights_pdf(scene, p, v, tm):
 
 def sample_lights(scene, p, gen: torch.Generator):
     """HittableList::random (hittable/mod.rs:129-132): pick a light
-    uniformly, then sample it.  Returns a (3, N) direction."""
+    uniformly, then sample it.  Returns a (3, N) direction.  Draws, in
+    order: the pick (several lights only), then the sphere cone's pair and
+    the rect point's pair, each where such a light is in the list."""
+    stats = scene.stats
+    n = p.shape[1]
+    pick = None
+    if len(stats.light_ids) > 1:
+        pick = torch.randint(0, len(stats.light_ids), (n,), generator=gen, device=gen.device)
+    sphere_u = (uniform(gen, (n,)), uniform(gen, (n,))) if SPHERE in stats.light_kinds else None
+    rect_u = (uniform(gen, (n,)), uniform(gen, (n,))) if RECT in stats.light_kinds else None
+    return light_directions(scene, p, pick, sphere_u, rect_u)
+
+
+def light_directions(scene, p, pick, sphere_u, rect_u):
+    """:func:`sample_lights` of its variates: ``pick`` i64[N] (None for a
+    single light), ``sphere_u`` and ``rect_u`` pairs of U[0, 1) f32[N] (None
+    where no light of that kind is in the list).  Returns a (3, N)
+    direction."""
     stats = scene.stats
     ids = stats.light_ids
     n = p.shape[1]
     lp_all = _light_params(scene, ids)  # (16, L)
-    if len(ids) == 1:
+    if pick is None:
         prm = lp_all  # (16, 1) broadcasts over rays
         kind = scene.kind[ids[0] : ids[0] + 1]
     else:
-        pick = torch.randint(0, len(ids), (n,), generator=gen, device=gen.device)
         prm = lp_all[:, pick]
         kind = torch.cat([scene.kind[i : i + 1] for i in ids])[pick]
 
@@ -101,12 +118,11 @@ def sample_lights(scene, p, gen: torch.Generator):
         # Sphere::random (sphere.rs:85-90): cone sample toward the center
         direction = prm[0:3] - p
         u, v, w = onb_from_w(direction)
-        local = to_sphere(gen, prm[3].expand(n), length_sqr(direction))
+        local = sphere_cone_local(*sphere_u, prm[3].expand(n), length_sqr(direction))
         out = torch.where((kind == SPHERE)[None], onb_local(u, v, w, local), out)
     if RECT in stats.light_kinds:
         # XZRect::random et al. (aarect.rs:85-93, 168-176, 251-259)
-        ua = uniform(gen, (n,))
-        ub = uniform(gen, (n,))
+        ua, ub = rect_u
         a = prm[0] + ua * (prm[1] - prm[0])
         b = prm[2] + ub * (prm[3] - prm[2])
         kv = prm[4].expand(n)

@@ -53,6 +53,11 @@ def cosine_direction(gen, shape) -> torch.Tensor:
     """Cosine-weighted hemisphere direction about +z (pdf.rs:12-21)."""
     r1 = uniform(gen, shape)
     r2 = uniform(gen, shape)
+    return cosine_local(r1, r2)
+
+
+def cosine_local(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """:func:`cosine_direction` of the U[0, 1) variates ``r1``, ``r2``."""
     z = torch.sqrt(1.0 - r2)
     phi = 2.0 * PI * r1
     sq_r2 = torch.sqrt(r2)
@@ -71,6 +76,11 @@ def to_sphere(gen, radius: torch.Tensor, dist_sqr: torch.Tensor) -> torch.Tensor
     ``dist_sqr``, in the frame whose +z points at its center (vec.rs:108-117)."""
     r1 = uniform(gen, tuple(radius.shape))
     r2 = uniform(gen, tuple(radius.shape))
+    return sphere_cone_local(r1, r2, radius, dist_sqr)
+
+
+def sphere_cone_local(r1, r2, radius: torch.Tensor, dist_sqr: torch.Tensor) -> torch.Tensor:
+    """:func:`to_sphere` of the U[0, 1) variates ``r1``, ``r2``."""
     rel = 1.0 - radius * radius / dist_sqr
     cos_max = torch.where(rel > 0.0, masked_sqrt(rel, rel > 0.0), 0.0)
     z = 1.0 + r2 * (cos_max - 1.0)

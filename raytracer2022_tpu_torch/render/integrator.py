@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import mis
 from ..ops.intersect import closest_hit
 from ..ops.lights import lights_pdf, sample_lights
 from ..ops.materials import emitted, scatter, scattering_pdf_lambertian, texture_value
@@ -117,6 +118,31 @@ class _Vertex(NamedTuple):
     throughput: torch.Tensor  # updated throughput (valid where cont)
 
 
+def _mixture_sample(scene: SceneData, hit, tm, gen: torch.Generator):
+    """The diffuse branch's sample of the 50/50 mixture of the lights and
+    the cosine lobe about ``hit.normal`` (main.rs:263-266), the cosine lobe
+    alone without lights -> ``(new_dir (3, N), pdf_val (N,))``.
+
+    Where :func:`ops.mis.kernel_takes` holds (forward renders on the card)
+    it is one kernel on one block of variates; elsewhere (gradients, the
+    CPU) the composite, which draws its variates one ``torch.rand`` at a
+    time: the same distribution, another draw order.
+    """
+    n = tm.shape[0]
+    if mis.kernel_takes(scene, hit.p, hit.normal):
+        u = uniform(gen, (mis.variate_rows(len(scene.stats.light_ids)), n))
+        return mis.mis_sample(scene, hit.p.contiguous(), hit.normal.contiguous(), u)
+    cos_dir = cosine_about_normal(gen, hit.normal)
+    if not scene.stats.light_ids:
+        # lightless scenes: pure cosine importance sampling
+        return cos_dir, cos_pdf_value(cos_dir, to_unit(hit.normal))
+    light_dir = sample_lights(scene, hit.p, gen)
+    pick_light = uniform(gen, (n,)) < 0.5
+    new_dir = torch.where(pick_light[None], light_dir, cos_dir)
+    pdf_val = 0.5 * lights_pdf(scene, hit.p, new_dir, tm) + 0.5 * cos_pdf_value(new_dir, to_unit(hit.normal))
+    return new_dir, pdf_val
+
+
 def _eval_vertex(
     scene: SceneData, cfg: TraceConfig, o, d, tm, throughput, alive, gen: torch.Generator,
     recompute_t: bool = True,
@@ -129,9 +155,6 @@ def _eval_vertex(
     kills the sample with its radiance kept.  ``recompute_t`` goes to
     :func:`closest_hit`: the forward-only schedules pass False.
     """
-    n = tm.shape[0]
-    has_lights = len(scene.stats.light_ids) > 0
-
     # Park dead lanes far outside every AABB so tree walks reject them at
     # the root (1e6, beyond any library scene; 1e30 would overflow when
     # squared in the sphere quadratic, and its non-finite primals would
@@ -146,20 +169,8 @@ def _eval_vertex(
         em = emitted(shade, hit, tex_val)
         sc = scatter(shade, hit, tex_val, d, tm, gen)
 
-    # diffuse branch: 50/50 mixture of light and cosine (main.rs:263-266)
     with span("vertex.sampling"):
-        cos_dir = cosine_about_normal(gen, hit.normal)
-        if has_lights:
-            light_dir = sample_lights(scene, hit.p, gen)
-            pick_light = uniform(gen, (n,)) < 0.5
-            new_dir = torch.where(pick_light[None], light_dir, cos_dir)
-            pdf_val = 0.5 * lights_pdf(scene, hit.p, new_dir, tm) + 0.5 * cos_pdf_value(
-                new_dir, to_unit(hit.normal)
-            )
-        else:
-            # lightless scenes: pure cosine importance sampling
-            new_dir = cos_dir
-            pdf_val = cos_pdf_value(new_dir, to_unit(hit.normal))
+        new_dir, pdf_val = _mixture_sample(scene, hit, tm, gen)
 
     with span("vertex.update"):
         spdf = scattering_pdf_lambertian(hit.normal, new_dir)
