@@ -1,7 +1,7 @@
 # One-command gates, mirroring the reference Makefile (reference:
 # Makefile:1-21 — run_release / fmt / clippy / test / ci).
 
-PY_SOURCES = raytracer2022_tpu raytracer2022_tpu_torch tests tools bench.py __graft_entry__.py chip_smoke.py compare_forward.py compare_k1.py
+PY_SOURCES = raytracer2022_tpu raytracer2022_tpu_torch tests tools bench.py __graft_entry__.py chip_smoke.py compare_k1.py
 
 .PHONY: run run-torch fmt lint test test-full bench bench-torch smoke ci native
 

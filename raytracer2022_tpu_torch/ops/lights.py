@@ -7,9 +7,13 @@ hittable/mod.rs:121-132) for sphere and rect lights.
   * ``lights_pdf``: one dense ``(L, N)`` evaluation per light kind, then a
     mean over L (sphere solid-angle pdf sphere.rs:75-83, rect area pdf
     aarect.rs:74-83).
-  * ``sample_lights``: a uniform light pick per ray, then the picked kind's
-    sampler (sphere cone sphere.rs:85-90, rect point aarect.rs:85-93);
-    ``light_directions`` is the same of variates drawn beforehand.
+  * ``light_directions``: a uniform light pick per ray, then the picked
+    kind's sampler (sphere cone sphere.rs:85-90, rect point
+    aarect.rs:85-93), of variates the caller drew beforehand.
+    ``ops/mis.py`` draws one block a vertex, on every device and with or
+    without gradients; its kernel samples the lights itself for card
+    tensors that want no gradient, and its plain version calls this
+    everywhere else.
 
 Light ids are static (``SceneStats``), so light rows are taken by slicing
 with Python ints: no index tensor is copied to the device per call.
@@ -23,7 +27,7 @@ import torch
 
 from ..scene.types import RECT, SPHERE
 from .intersect import _rect_t, _sphere_t
-from .sampling import sphere_cone_local, uniform
+from .sampling import sphere_cone_local
 from .vecmath import length_sqr, masked_sqrt, onb_from_w, onb_local, vec3
 
 PI = math.pi
@@ -81,25 +85,11 @@ def lights_pdf(scene, p, v, tm):
     return total / float(max(n_lights, 1))
 
 
-def sample_lights(scene, p, gen: torch.Generator):
-    """HittableList::random (hittable/mod.rs:129-132): pick a light
-    uniformly, then sample it.  Returns a (3, N) direction.  Draws, in
-    order: the pick (several lights only), then the sphere cone's pair and
-    the rect point's pair, each where such a light is in the list."""
-    stats = scene.stats
-    n = p.shape[1]
-    pick = None
-    if len(stats.light_ids) > 1:
-        pick = torch.randint(0, len(stats.light_ids), (n,), generator=gen, device=gen.device)
-    sphere_u = (uniform(gen, (n,)), uniform(gen, (n,))) if SPHERE in stats.light_kinds else None
-    rect_u = (uniform(gen, (n,)), uniform(gen, (n,))) if RECT in stats.light_kinds else None
-    return light_directions(scene, p, pick, sphere_u, rect_u)
-
-
 def light_directions(scene, p, pick, sphere_u, rect_u):
-    """:func:`sample_lights` of its variates: ``pick`` i64[N] (None for a
-    single light), ``sphere_u`` and ``rect_u`` pairs of U[0, 1) f32[N] (None
-    where no light of that kind is in the list).  Returns a (3, N)
+    """HittableList::random (hittable/mod.rs:129-132) of its variates: the
+    light ``pick`` i64[N] (None for a single light), then the picked
+    light's sample from ``sphere_u`` or ``rect_u``, pairs of U[0, 1) f32[N]
+    (None where no light of that kind is in the list).  Returns a (3, N)
     direction."""
     stats = scene.stats
     ids = stats.light_ids

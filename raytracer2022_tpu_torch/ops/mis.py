@@ -11,16 +11,13 @@ lights).
 block of uniform variates ``u`` f32[k, N] (:func:`variate_rows`: rows 0-1
 the cosine lobe, row 2 the 50/50 pick, rows 3-4 the picked light's pair,
 row 5 the light pick where there are several lights) and returns
-``(new_dir f32[3, N], pdf_val f32[N])``: for CUDA tensors the hand-written
-kernel ``csrc/mis_sample.cu``, counted in ``LAUNCHES`` (and in an open
-launch record's ``sampling_kernel_calls``); for CPU tensors
-:func:`mis_sample_plain`, the same function written with the composite's
-own samplers and pdfs.
-
-The integrator (``render/integrator.py::_mixture_sample``) takes it where
-:func:`kernel_takes` holds: CUDA tensors, no gradient wanted through the
-block, and lights the kernel samples.  Every other caller keeps the
-composite, which draws its variates one ``torch.rand`` at a time.
+``(new_dir f32[3, N], pdf_val f32[N])``.  Every vertex draws one such
+block, on every device and with or without gradients.  Where
+:func:`kernel_takes` holds (CUDA tensors, no gradient wanted through the
+block, and lights the kernel samples: every forward render on the card)
+it launches the hand-written kernel ``csrc/mis_sample.cu``, counted in
+``LAUNCHES``; everywhere else (the CPU, gradient renders on either device)
+it runs :func:`mis_sample_plain`, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -31,12 +28,11 @@ import functools
 import torch
 
 from ..scene.types import RECT, SPHERE
-from ..utils.profiling import count_sampling_kernel
 from .lights import light_directions, lights_pdf
 from .sampling import cos_pdf_value, cosine_local
 from .vecmath import onb_from_w, onb_local, to_unit
 
-LAUNCHES = 0  # mis_sample calls on CUDA tensors in this process
+LAUNCHES = 0  # launches of the kernel in this process
 MAX_LIGHTS = 1024  # the kernel's light table: 32 B a light in a block's shared memory
 THREADS = 256  # threads a block, as csrc/mis_sample.cu launches them
 BLOCKS_PER_SM = 8  # the grid's cap; a block's threads stride over the rest
@@ -59,11 +55,8 @@ def kernel_takes(scene, p: torch.Tensor, normal: torch.Tensor) -> bool:
         return False
     if torch.is_grad_enabled() and (p.requires_grad or normal.requires_grad or scene.params.requires_grad):
         return False
-    return _kernel_samples(scene.stats.light_kinds)
-
-
-def _kernel_samples(light_kinds) -> bool:
-    return len(light_kinds) <= MAX_LIGHTS and set(light_kinds) <= {SPHERE, RECT}
+    kinds = scene.stats.light_kinds
+    return len(kinds) <= MAX_LIGHTS and set(kinds) <= {SPHERE, RECT}
 
 
 def mis_sample_plain(scene, p: torch.Tensor, normal: torch.Tensor, u: torch.Tensor):
@@ -103,7 +96,7 @@ def _sms(index: int) -> int:
 
 def _check(scene, p, normal, u) -> None:
     """Raise on inputs the kernel does not take (the plain version is held
-    to the same, so that the CPU tests see what the card refuses)."""
+    to the same, so that both paths refuse the same calls)."""
     n = p.shape[-1]
     k = variate_rows(len(scene.stats.light_ids))
     for name, x, shape in (("p", p, (3, n)), ("normal", normal, (3, n)), ("u", u, (k, n))):
@@ -116,9 +109,6 @@ def _check(scene, p, normal, u) -> None:
 
 def _mis_sample_cuda(scene, p, normal, u):
     kinds = scene.stats.light_kinds
-    if not _kernel_samples(kinds):
-        raise ValueError(f"mis_sample: the kernel samples at most {MAX_LIGHTS} sphere and rect lights, "
-                         f"got {len(kinds)} of kinds {sorted(set(kinds))}")
     params, kind, lights = scene.params, scene.kind, scene.lights
     if (params.dtype != torch.float32 or params.dim() != 2 or not params.is_contiguous()
             or kind.dtype != torch.int32 or lights.dtype != torch.int32 or lights.shape != (len(kinds),)):
@@ -134,7 +124,6 @@ def _mis_sample_cuda(scene, p, normal, u):
     lib = _kernel_lib()
     with torch.cuda.device(dev):  # the launch goes to the current device
         LAUNCHES += 1
-        count_sampling_kernel()
         err = lib.rt_mis_sample(
             p.data_ptr(), normal.data_ptr(), u.data_ptr(), u.shape[0], params.data_ptr(), params.shape[1],
             kind.data_ptr(), lights.data_ptr(), len(kinds), n, blocks, new_dir.data_ptr(), pdf_val.data_ptr(),
@@ -149,13 +138,12 @@ def mis_sample(scene, p: torch.Tensor, normal: torch.Tensor, u: torch.Tensor):
     """The diffuse branch's mixture sample of hit points ``p`` and normals
     ``normal`` (contiguous f32[3, N]) from the variates ``u`` (contiguous
     f32[variate_rows(L), N], U[0, 1)) -> ``(new_dir f32[3, N], pdf_val
-    f32[N])``: the kernel for CUDA tensors, :func:`mis_sample_plain` for
-    CPU tensors.  A pdf is NaN where the origin lies inside a light sphere
-    that the direction hits, and 0 where no light and no lobe gives the
-    direction a density; the integrator kills both samples."""
+    f32[N])``: the kernel where :func:`kernel_takes` holds,
+    :func:`mis_sample_plain` on every other call.  A pdf is NaN where the
+    origin lies inside a light sphere that the direction hits, and 0 where
+    no light and no lobe gives the direction a density; the integrator
+    kills both samples."""
     _check(scene, p, normal, u)
-    if p.device.type == "cpu":
-        return mis_sample_plain(scene, p, normal, u)
-    if p.device.type == "cuda":
+    if kernel_takes(scene, p, normal):
         return _mis_sample_cuda(scene, p, normal, u)
-    raise ValueError(f"mis_sample: no kernel for device {p.device}")
+    return mis_sample_plain(scene, p, normal, u)

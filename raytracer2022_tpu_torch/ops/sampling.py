@@ -2,9 +2,10 @@
 
 Counterpart of ``raytracer2022_tpu/ops/sampling.py``: the same closed-form
 transforms of uniform variates (the reference's rejection loops,
-raytracer/src/basic/vec.rs:69-106, draw the same distributions).  Each
-sampler takes an explicit ``torch.Generator`` and draws on its device with
-``torch.rand``; there is no global RNG state.
+raytracer/src/basic/vec.rs:69-106, draw the same distributions).  The
+``uniform*`` samplers take an explicit ``torch.Generator`` and draw on its
+device with ``torch.rand``; the ``*_local`` forms transform variates that
+the caller drew; there is no global RNG state.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import math
 
 import torch
 
-from .vecmath import dot, masked_sqrt, onb_from_w, onb_local, scale, to_unit, vec3
+from .vecmath import dot, masked_sqrt, scale, to_unit, vec3
 
 PI = math.pi
 
@@ -49,38 +50,19 @@ def uniform_in_unit_disk(gen, shape) -> torch.Tensor:
     return vec3(r * torch.cos(phi), r * torch.sin(phi), torch.zeros_like(r))
 
 
-def cosine_direction(gen, shape) -> torch.Tensor:
-    """Cosine-weighted hemisphere direction about +z (pdf.rs:12-21)."""
-    r1 = uniform(gen, shape)
-    r2 = uniform(gen, shape)
-    return cosine_local(r1, r2)
-
-
 def cosine_local(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
-    """:func:`cosine_direction` of the U[0, 1) variates ``r1``, ``r2``."""
+    """Cosine-weighted hemisphere direction about +z (pdf.rs:12-21) of the
+    U[0, 1) variates ``r1``, ``r2``."""
     z = torch.sqrt(1.0 - r2)
     phi = 2.0 * PI * r1
     sq_r2 = torch.sqrt(r2)
     return vec3(torch.cos(phi) * sq_r2, torch.sin(phi) * sq_r2, z)
 
 
-def cosine_about_normal(gen, normal: torch.Tensor) -> torch.Tensor:
-    """Cosine-weighted direction about ``normal`` (CosPdf::generate)."""
-    local = cosine_direction(gen, tuple(normal.shape[1:]))
-    u, v, w = onb_from_w(normal)
-    return onb_local(u, v, w, local)
-
-
-def to_sphere(gen, radius: torch.Tensor, dist_sqr: torch.Tensor) -> torch.Tensor:
-    """Cone sample toward a sphere of ``radius`` at squared distance
-    ``dist_sqr``, in the frame whose +z points at its center (vec.rs:108-117)."""
-    r1 = uniform(gen, tuple(radius.shape))
-    r2 = uniform(gen, tuple(radius.shape))
-    return sphere_cone_local(r1, r2, radius, dist_sqr)
-
-
 def sphere_cone_local(r1, r2, radius: torch.Tensor, dist_sqr: torch.Tensor) -> torch.Tensor:
-    """:func:`to_sphere` of the U[0, 1) variates ``r1``, ``r2``."""
+    """Cone sample toward a sphere of ``radius`` at squared distance
+    ``dist_sqr``, in the frame whose +z points at its center
+    (vec.rs:108-117), of the U[0, 1) variates ``r1``, ``r2``."""
     rel = 1.0 - radius * radius / dist_sqr
     cos_max = torch.where(rel > 0.0, masked_sqrt(rel, rel > 0.0), 0.0)
     z = 1.0 + r2 * (cos_max - 1.0)

@@ -4,6 +4,10 @@ Counterpart of ``raytracer2022_tpu/render/integrator.py`` (reference
 ``ray_color``, raytracer/src/main.rs:233-278).  Per path vertex: closest
 hit -> emitted -> scatter -> mixture-PDF sample -> throughput/radiance
 update; the vertex math (:func:`_eval_vertex`) is the JAX package's.
+Its mixture sample draws one block of variates a vertex, on every device
+and with or without gradients, and hands it to :func:`ops.mis.mis_sample`:
+the hand-written kernel for card tensors that want no gradient, its plain
+version everywhere else.
 
 Forward: :func:`trace_regen` is the path regeneration wavefront with three
 schedules (:class:`Schedule`): the global sample pool, the pixel pool and
@@ -41,9 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import mis
 from ..ops.intersect import closest_hit
-from ..ops.lights import lights_pdf, sample_lights
 from ..ops.materials import emitted, scatter, scattering_pdf_lambertian, texture_value
-from ..ops.sampling import cos_pdf_value, cosine_about_normal, uniform
+from ..ops.sampling import uniform
 from ..ops.sort import ray_sort_key, sort_by_key
 from ..ops.vecmath import dot, scale, to_unit, vec3
 from ..scene.types import ISOTROPIC, LAMBERTIAN, SceneData
@@ -118,31 +121,6 @@ class _Vertex(NamedTuple):
     throughput: torch.Tensor  # updated throughput (valid where cont)
 
 
-def _mixture_sample(scene: SceneData, hit, tm, gen: torch.Generator):
-    """The diffuse branch's sample of the 50/50 mixture of the lights and
-    the cosine lobe about ``hit.normal`` (main.rs:263-266), the cosine lobe
-    alone without lights -> ``(new_dir (3, N), pdf_val (N,))``.
-
-    Where :func:`ops.mis.kernel_takes` holds (forward renders on the card)
-    it is one kernel on one block of variates; elsewhere (gradients, the
-    CPU) the composite, which draws its variates one ``torch.rand`` at a
-    time: the same distribution, another draw order.
-    """
-    n = tm.shape[0]
-    if mis.kernel_takes(scene, hit.p, hit.normal):
-        u = uniform(gen, (mis.variate_rows(len(scene.stats.light_ids)), n))
-        return mis.mis_sample(scene, hit.p.contiguous(), hit.normal.contiguous(), u)
-    cos_dir = cosine_about_normal(gen, hit.normal)
-    if not scene.stats.light_ids:
-        # lightless scenes: pure cosine importance sampling
-        return cos_dir, cos_pdf_value(cos_dir, to_unit(hit.normal))
-    light_dir = sample_lights(scene, hit.p, gen)
-    pick_light = uniform(gen, (n,)) < 0.5
-    new_dir = torch.where(pick_light[None], light_dir, cos_dir)
-    pdf_val = 0.5 * lights_pdf(scene, hit.p, new_dir, tm) + 0.5 * cos_pdf_value(new_dir, to_unit(hit.normal))
-    return new_dir, pdf_val
-
-
 def _eval_vertex(
     scene: SceneData, cfg: TraceConfig, o, d, tm, throughput, alive, gen: torch.Generator,
     recompute_t: bool = True,
@@ -170,7 +148,8 @@ def _eval_vertex(
         sc = scatter(shade, hit, tex_val, d, tm, gen)
 
     with span("vertex.sampling"):
-        new_dir, pdf_val = _mixture_sample(scene, hit, tm, gen)
+        u = uniform(gen, (mis.variate_rows(len(scene.stats.light_ids)), tm.shape[0]))
+        new_dir, pdf_val = mis.mis_sample(scene, hit.p.contiguous(), hit.normal.contiguous(), u)
 
     with span("vertex.update"):
         spdf = scattering_pdf_lambertian(hit.normal, new_dir)

@@ -8,10 +8,9 @@ A launch whose caller passed a ``launch_log`` runs inside
 adds its host self time (its duration less its child spans, the sync
 waits among them) and its entries to the record; :func:`host_sync`, the one door
 of the render path's deliberate device-to-host reads, counts the reads
-and the seconds the host was blocked in them; :func:`count_lanes`
-sums the live lanes and the wavefront's width over the iterations; and
-:func:`count_sampling_kernel` counts the launches of the vertex's sampling
-kernel (``ops/mis.py``).  The launch's log entry carries the sums.  Under a profiler every span is also
+and the seconds the host was blocked in them; and :func:`count_lanes`
+sums the live lanes and the wavefront's width over the iterations.  The
+launch's log entry carries the sums.  Under a profiler every span is also
 a ``record_function`` of the same name, so a device trace and the record
 name the same host activities.
 """
@@ -36,8 +35,7 @@ _OPEN: contextvars.ContextVar[Optional["LaunchRecord"]] = contextvars.ContextVar
 
 class LaunchRecord:
     """The host's account of one launch: self seconds and entries by span
-    name, counted syncs and their wait, lane occupancy sums, and the
-    sampling kernel's launches."""
+    name, counted syncs and their wait, and lane occupancy sums."""
 
     def __init__(self):
         self.self_s: Counter = Counter()
@@ -46,14 +44,13 @@ class LaunchRecord:
         self.sync_wait_s = 0.0
         self.live_lanes = 0
         self.wavefront_lanes = 0
-        self.sampling_kernel_calls = 0
         self.stack: list = []  # the open spans, innermost last
 
     def fields(self) -> dict:
         """The entries a launch's log entry gains."""
         return {"span_self_s": dict(self.self_s), "span_calls": dict(self.calls), "syncs": self.syncs,
                 "sync_wait_s": self.sync_wait_s, "live_lanes": self.live_lanes,
-                "wavefront_lanes": self.wavefront_lanes, "sampling_kernel_calls": self.sampling_kernel_calls}
+                "wavefront_lanes": self.wavefront_lanes}
 
 
 class _Span:
@@ -119,14 +116,6 @@ def count_lanes(live: int, width: int) -> None:
     if rec is not None:
         rec.live_lanes += live
         rec.wavefront_lanes += width
-
-
-def count_sampling_kernel() -> None:
-    """Add one launch of the sampling kernel to the open record (nothing
-    without one)."""
-    rec = _OPEN.get()
-    if rec is not None:
-        rec.sampling_kernel_calls += 1
 
 
 @contextlib.contextmanager

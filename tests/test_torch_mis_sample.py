@@ -1,9 +1,11 @@
 """The vertex's mixture sample in one call (``ops/mis.py``): its plain
-version against the integrator's composite on the same variates, replayed
-in the composite's draw order; the NaN and zero pdfs the integrator kills;
-the routing (every CPU vertex keeps the composite, bit for bit, with and
-without gradients); the wrapper's refusals; and on the card the kernel
-against its plain version and in the forward render.
+version against a written-out composite (the sample drawn one
+``torch.rand`` at a time) on the same variates, replayed in the
+composite's draw order; the NaN and zero pdfs the integrator kills; the
+routing (every CPU vertex, with and without gradients, runs the plain
+version on one block drawn from its generator); the wrapper's refusals;
+and on the card the kernel against its plain version, in the forward
+render, and the plain version under gradients on the same variates.
 
 No JAX here, so the file also runs on a card machine without it:
 
@@ -23,10 +25,10 @@ torch = pytest.importorskip("torch")
 
 from raytracer2022_tpu_torch.ops import mis  # noqa: E402
 from raytracer2022_tpu_torch.ops.lights import _light_params, lights_pdf  # noqa: E402
-from raytracer2022_tpu_torch.ops.sampling import cos_pdf_value, cosine_about_normal, to_sphere, uniform  # noqa: E402
+from raytracer2022_tpu_torch.ops.sampling import cos_pdf_value, cosine_local, sphere_cone_local, uniform  # noqa: E402
 from raytracer2022_tpu_torch.ops.vecmath import length_sqr, onb_from_w, onb_local, to_unit, vec3  # noqa: E402
 from raytracer2022_tpu_torch.render import integrator  # noqa: E402
-from raytracer2022_tpu_torch.render.integrator import TraceConfig, _eval_vertex, _mixture_sample  # noqa: E402
+from raytracer2022_tpu_torch.render.integrator import TraceConfig, _eval_vertex  # noqa: E402
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 from raytracer2022_tpu_torch.scene.types import RECT, SPHERE, TRIANGLE  # noqa: E402
 
@@ -96,8 +98,7 @@ def _replayed_block(scene, n: int, seed: int) -> torch.Tensor:
 
 
 def _composite(scene, p, nrm, seed: int):
-    gen = torch.Generator().manual_seed(seed)
-    return _mixture_sample(scene, SimpleNamespace(p=p, normal=nrm), torch.zeros(p.shape[1]), gen)
+    return _composite_sampling(scene, p, nrm, torch.Generator().manual_seed(seed))
 
 
 def _assert_close(got, want):
@@ -157,11 +158,10 @@ def test_a_direction_in_the_rects_plane_has_pdf_zero():
     assert (got[1][~light] > 0).all()
 
 
-def test_a_killed_lane_keeps_its_radiance(monkeypatch):
-    """The kernel's route on the CPU (``kernel_takes`` forced, so
-    ``mis_sample`` runs its plain version): from inside the light sphere
-    the pdf is NaN, and the vertex kills the diffuse lanes with their
-    throughput and radiance finite and unchanged, as the composite does."""
+def test_a_killed_lane_keeps_its_radiance():
+    """From inside the light sphere the pdf is NaN, and the vertex kills
+    the diffuse lanes with their throughput and radiance finite and
+    unchanged, with and without gradients."""
     b = SceneBuilder()
     dome = b.sphere((0, 0, 0), 10, b.diffuse_light((1.0, 1.0, 1.0)))
     b.flip_face(dome)
@@ -178,19 +178,22 @@ def test_a_killed_lane_keeps_its_radiance(monkeypatch):
     alive = torch.ones(512, dtype=torch.bool)
     cfg = TraceConfig(max_depth=4, background=(0.0, 0.0, 0.0))
     outs = []
-    for take in (False, True):
-        monkeypatch.setattr(mis, "kernel_takes", lambda scene, p, normal, take=take: take)
-        outs.append(_eval_vertex(scene, cfg, o, d, tm, th, alive, torch.Generator().manual_seed(0)))
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            outs.append(_eval_vertex(scene, cfg, o.requires_grad_(grad), d, tm, th, alive,
+                                     torch.Generator().manual_seed(0)))
     for vx in outs:
         assert not vx.cont.any()
         assert torch.isfinite(vx.radiance_add).all() and torch.equal(vx.radiance_add, torch.zeros_like(th))
-        assert torch.equal(vx.throughput, th)
+        assert torch.equal(vx.throughput.detach(), th)
 
 
-# --- the parent commit's sampling block, verbatim, as the CPU's reference
+# --- the composite, written out: the mixture sample drawn one ``torch.rand``
+# at a time (the cosine lobe's pair, the light pick, the sphere cone's pair,
+# the rect point's pair, the 50/50 pick), the plain version's reference
 
 
-def _parent_sample_lights(scene, p, gen):
+def _composite_lights(scene, p, gen):
     stats = scene.stats
     ids = stats.light_ids
     n = p.shape[1]
@@ -206,7 +209,8 @@ def _parent_sample_lights(scene, p, gen):
     if SPHERE in stats.light_kinds:
         direction = prm[0:3] - p
         u, v, w = onb_from_w(direction)
-        local = to_sphere(gen, prm[3].expand(n), length_sqr(direction))
+        r1, r2 = uniform(gen, (n,)), uniform(gen, (n,))
+        local = sphere_cone_local(r1, r2, prm[3].expand(n), length_sqr(direction))
         out = torch.where((kind == SPHERE)[None], onb_local(u, v, w, local), out)
     if RECT in stats.light_kinds:
         ua = uniform(gen, (n,))
@@ -220,26 +224,30 @@ def _parent_sample_lights(scene, p, gen):
     return out
 
 
-def _parent_sampling(scene, hit, tm, gen):
-    n = tm.shape[0]
-    cos_dir = cosine_about_normal(gen, hit.normal)
+def _composite_sampling(scene, p, normal, gen):
+    n = p.shape[1]
+    r1, r2 = uniform(gen, (n,)), uniform(gen, (n,))
+    cos_dir = onb_local(*onb_from_w(normal), cosine_local(r1, r2))
     if len(scene.stats.light_ids) > 0:
-        light_dir = _parent_sample_lights(scene, hit.p, gen)
+        light_dir = _composite_lights(scene, p, gen)
         pick_light = uniform(gen, (n,)) < 0.5
         new_dir = torch.where(pick_light[None], light_dir, cos_dir)
-        pdf_val = 0.5 * lights_pdf(scene, hit.p, new_dir, tm) + 0.5 * cos_pdf_value(new_dir, to_unit(hit.normal))
+        pdf_val = 0.5 * lights_pdf(scene, p, new_dir, None) + 0.5 * cos_pdf_value(new_dir, to_unit(normal))
     else:
         new_dir = cos_dir
-        pdf_val = cos_pdf_value(new_dir, to_unit(hit.normal))
+        pdf_val = cos_pdf_value(new_dir, to_unit(normal))
     return new_dir, pdf_val
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "grad", "requires_grad"])
 @pytest.mark.parametrize("case", CASES)
 def test_cpu_vertices_keep_the_parents_composite(case, mode, monkeypatch):
-    """``_eval_vertex`` on the CPU, under ``no_grad``, under grad, and with
-    rays that require a gradient: every output equals what the parent's
-    sampling block gives, bit for bit, and the kernel is never launched."""
+    """The routing of ``_eval_vertex`` on the CPU, under ``no_grad``, under
+    grad, and with rays that require a gradient: the vertex draws one
+    block of ``variate_rows(L)`` rows from its own generator and runs
+    ``mis_sample_plain`` on it, once; every output equals, bit for bit,
+    the vertex that calls ``mis_sample_plain`` directly; the kernel is
+    never launched, and the throughput still requires grad."""
     scene = _scene(case)
     rng = np.random.default_rng(8)
     n = 1024
@@ -258,11 +266,32 @@ def test_cpu_vertices_keep_the_parents_composite(case, mode, monkeypatch):
         with torch.no_grad() if mode == "no_grad" else torch.enable_grad():
             return _eval_vertex(scene, cfg, o, d, tm, th, alive, torch.Generator().manual_seed(11))
 
+    draws, blocks = [], []
+    real_uniform, real_plain = integrator.uniform, mis.mis_sample_plain
+
+    def drawn(gen, shape, *args):
+        draws.append((gen.get_state(), tuple(shape)))
+        return real_uniform(gen, shape, *args)
+
+    def plain(scene, p, normal, u):
+        blocks.append(u)
+        return real_plain(scene, p, normal, u)
+
+    def no_kernel(*args):
+        raise AssertionError("a CPU vertex launched the kernel")
+
+    monkeypatch.setattr(integrator, "uniform", drawn)
+    monkeypatch.setattr(mis, "mis_sample_plain", plain)
+    monkeypatch.setattr(mis, "_mis_sample_cuda", no_kernel)
     got = vertex()
-    monkeypatch.setattr(integrator, "_mixture_sample", _parent_sampling)
+    ((state, shape),) = draws
+    (u,) = blocks
+    assert shape == (mis.variate_rows(len(scene.stats.light_ids)), n)
+    assert torch.equal(u, torch.rand(shape, generator=torch.Generator().set_state(state)))
+    monkeypatch.setattr(mis, "mis_sample", real_plain)
     want = vertex()
     for g, w in zip(got, want):
-        assert torch.equal(g.detach(), w.detach()), "a CPU vertex left the parent's composite"
+        assert torch.equal(g.detach(), w.detach()), "a CPU vertex left the plain version"
     assert got.cont.any() and mis.LAUNCHES == launches
     if mode == "requires_grad":
         assert got.throughput.requires_grad
@@ -346,10 +375,12 @@ def test_kernel_is_its_plain_version(card, case, inside):
 
 
 @pytest.mark.cuda
-def test_forward_renders_on_the_card_take_the_kernel_and_gradients_do_not(card):
-    """A logged forward render launches the kernel once a vertex
-    (``sampling_kernel_calls`` equals the ``vertex.sampling`` spans); a
-    vertex whose rays require a gradient launches it never."""
+def test_forward_renders_on_the_card_take_the_kernel_and_gradients_do_not(card, monkeypatch):
+    """A logged forward render launches the kernel once a vertex (the
+    ``mis.LAUNCHES`` it adds equal its ``vertex.sampling`` spans); a vertex
+    whose rays require a gradient launches it never and runs the plain
+    version on the same variates as the forward vertex of the same seed,
+    to the kernel's tolerance."""
     from raytracer2022_tpu_torch.render import renderer as R
     from raytracer2022_tpu_torch.render.camera import make_camera
 
@@ -358,17 +389,33 @@ def test_forward_renders_on_the_card_take_the_kernel_and_gradients_do_not(card):
     log: list = []
     before = mis.LAUNCHES
     R.render_sum_n(scene, cam, R.RenderConfig(width=64, height=48, spp=8, max_depth=6), launch_log=log)
-    assert mis.LAUNCHES > before and log
-    for e in log:
-        assert e["sampling_kernel_calls"] == e["span_calls"]["vertex.sampling"] > 0
-    before = mis.LAUNCHES
+    assert mis.LAUNCHES - before == sum(e["span_calls"]["vertex.sampling"] for e in log) > 0
     o = torch.zeros((3, 256), device=card)
     o[1] = 2.0
     o[2] = -8.0
-    d = torch.randn((3, 256), device=card)
+    d = torch.randn((3, 256), device=card, generator=torch.Generator(device=card).manual_seed(1))
     d[2] = d[2].abs() + 1.0
-    vx = _eval_vertex(scene, TraceConfig(max_depth=4), o.requires_grad_(), d, torch.zeros(256, device=card),
-                      torch.ones((3, 256), device=card), torch.ones(256, dtype=torch.bool, device=card),
-                      torch.Generator(device=card).manual_seed(0))
-    assert vx.throughput.requires_grad and mis.LAUNCHES == before
+    blocks, outs, launches = [], [], []
+    real = mis.mis_sample
+
+    def sample(scene, p, normal, u):
+        blocks.append(u)
+        outs.append(real(scene, p, normal, u))
+        return outs[-1]
+
+    monkeypatch.setattr(mis, "mis_sample", sample)
+    for grad in (False, True):
+        before = mis.LAUNCHES
+        with torch.set_grad_enabled(grad):
+            vx = _eval_vertex(scene, TraceConfig(max_depth=4), o.clone().requires_grad_(grad), d,
+                              torch.zeros(256, device=card), torch.ones((3, 256), device=card),
+                              torch.ones(256, dtype=torch.bool, device=card), torch.Generator(device=card).manual_seed(0))
+        launches.append(mis.LAUNCHES - before)
+    assert launches == [1, 0] and vx.throughput.requires_grad
+    assert torch.equal(blocks[0], blocks[1])
+    (kdir, kpdf), (pdir, ppdf) = outs
+    assert float(((kdir - pdir.detach()).norm(dim=0) / pdir.detach().norm(dim=0)).max()) <= 1e-5
+    assert torch.equal(torch.isnan(kpdf), torch.isnan(ppdf))
+    rel = (kpdf - ppdf.detach()).abs() / ppdf.detach().abs().clamp_min(1e-30)
+    assert float(torch.where(torch.isnan(ppdf), 0.0, rel).max()) <= 1e-5
     assert math.isfinite(float(vx.radiance_add.sum()))

@@ -20,8 +20,7 @@ from raytracer2022_tpu_torch.utils.profiling import host_sync, launch_record, sp
 
 torch.set_num_threads(1)
 
-RECORD_KEYS = {"span_self_s", "span_calls", "syncs", "sync_wait_s", "live_lanes", "wavefront_lanes",
-               "sampling_kernel_calls"}
+RECORD_KEYS = {"span_self_s", "span_calls", "syncs", "sync_wait_s", "live_lanes", "wavefront_lanes"}
 
 
 def _lit_scene():
@@ -56,21 +55,18 @@ def test_self_time_takes_off_children_and_sync_waits(monkeypatch):
                 pass
         profiling.count_lanes(3, 4)
         profiling.count_lanes(1, 4)
-        profiling.count_sampling_kernel()
         entry["lanes"] = 4
     (e,) = log
     assert set(e) == {"lanes", "seconds"} | RECORD_KEYS and e["seconds"] == 9.0
     assert e["span_self_s"] == {"closest_hit.dense": 2.0, "vertex.closest_hit": 4.0}
     assert e["span_calls"] == {"closest_hit.dense": 2, "vertex.closest_hit": 1, "regen.sync": 1}
     assert (e["syncs"], e["sync_wait_s"], e["live_lanes"], e["wavefront_lanes"]) == (1, 1.0, 4, 8)
-    assert e["sampling_kernel_calls"] == 1
 
 
 def test_no_launch_log_opens_no_record():
     with launch_record(None, torch.device("cpu")) as entry:
         assert span("regen.update") is profiling._NO_SPAN
         profiling.count_lanes(1, 2)  # nothing to add to
-        profiling.count_sampling_kernel()
         entry["lanes"] = 1
 
 
@@ -94,7 +90,6 @@ def test_every_launch_carries_its_record(schedule, monkeypatch):
     assert n == n_bare and log
     for e in log:
         assert RECORD_KEYS <= set(e) and e["lanes"] > 0
-        assert e["sampling_kernel_calls"] == 0  # the CPU keeps the composite
         selfs = list(e["span_self_s"].values())
         assert all(s >= 0 for s in selfs) and e["sync_wait_s"] >= 0
         assert sum(selfs) + e["sync_wait_s"] <= e["seconds"]

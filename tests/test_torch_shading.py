@@ -20,6 +20,7 @@ from raytracer2022_tpu_torch.ops import intersect as tx  # noqa: E402
 from raytracer2022_tpu_torch.ops import lights as tlights  # noqa: E402
 from raytracer2022_tpu_torch.ops import materials as tmat  # noqa: E402
 from raytracer2022_tpu_torch.ops import sampling as sp  # noqa: E402
+from raytracer2022_tpu_torch.ops.vecmath import onb_from_w, onb_local  # noqa: E402
 from raytracer2022_tpu_torch.render import camera as tcam  # noqa: E402
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder as TorchBuilder  # noqa: E402
 
@@ -134,7 +135,9 @@ def test_sample_lights_hits_the_lights(scenes):
     rng = np.random.default_rng(8)
     p = torch.as_tensor(rng.uniform(20, 500, (3, 4096)).astype(np.float32))
     gen = torch.Generator().manual_seed(3)
-    d = tlights.sample_lights(ts, p, gen)
+    pick = torch.randint(0, len(ts.stats.light_ids), (4096,), generator=gen)
+    sphere_u, rect_u = (tuple(sp.uniform(gen, (2, 4096))) for _ in range(2))
+    d = tlights.light_directions(ts, p, pick, sphere_u, rect_u)
     t = tx.candidate_t(ts, p, d, torch.zeros(4096), 1e-3, float("inf"))
     light_rows = torch.tensor(ts.stats.light_ids)
     # the sampled light is hit (possibly behind an occluder: test the lights only)
@@ -180,7 +183,7 @@ def test_uniform_in_unit_disk_moments():
 
 
 def test_cosine_direction_moments():
-    v = sp.cosine_direction(_gen(2), (N,)).numpy()
+    v = sp.cosine_local(*sp.uniform(_gen(2), (2, N))).numpy()
     assert v[2].min() >= 0.0
     assert abs(v[2].mean() - 2 / 3) < 5e-3
     np.testing.assert_allclose(np.linalg.norm(v, axis=0), 1.0, rtol=1e-4)
@@ -189,13 +192,13 @@ def test_cosine_direction_moments():
 def test_cosine_about_normal_respects_axis():
     normal = torch.zeros((3, N))
     normal[1] = 1.0
-    v = sp.cosine_about_normal(_gen(3), normal).numpy()
+    v = onb_local(*onb_from_w(normal), sp.cosine_local(*sp.uniform(_gen(3), (2, N)))).numpy()
     assert v[1].min() >= -1e-6
     assert abs(v[1].mean() - 2 / 3) < 5e-3
 
 
 def test_to_sphere_cone():
-    v = sp.to_sphere(_gen(4), torch.full((N,), 0.5), torch.full((N,), 4.0)).numpy()
+    v = sp.sphere_cone_local(*sp.uniform(_gen(4), (2, N)), torch.full((N,), 0.5), torch.full((N,), 4.0)).numpy()
     cos_max = math.sqrt(1 - 0.25 / 4.0)
     assert v[2].min() >= cos_max - 1e-5
     assert abs(v[2].mean() - (1 + cos_max) / 2) < 5e-3
