@@ -37,7 +37,11 @@ times the cluster walk against K1 on one sphere tree.  The ``diff`` phase
 drives the differentiable path: K1 against the cluster walk under
 gradients, a central difference, fwd+bwd through ``trace_regen_diff`` on
 ``cornell_box`` (256x256 x 64 spp, depth 50) and on the stand-in mesh
-through K1 (128x128 x 32 spp), the fit step, and the fit demo.  The
+through K1 (128x128 x 32 spp), the fit step, and the fit demo.  Phases
+``sampling`` and ``vertex`` hold the vertex's kernels (``csrc/mis_sample.cu``,
+``csrc/vertex.cu``) to their plain versions at the first vertex of wwscene
+and cornell_box_book, time the second against its byte bound, and count
+its launches: one a vertex of a forward render, none in a fit step.  The
 ``multi`` phase starts ranks of ``parallel/worker.py``: the stand-in mesh
 render sharded over one rank (NCCL) and two ranks on one card (gloo), and
 over two cards (NCCL) where there are two, the sharded fit step on two
@@ -2361,15 +2365,18 @@ def mis_at_first_vertex(name: str, bundle, dev, smi: str) -> dict:
     return rec
 
 
-def mis_in_a_frame(name: str, bundle, dev, smi: str, spp: int = 2) -> dict:
-    """Launches of the sampling kernel in a logged ``render_sum_n`` of
-    ``name``'s frame at ``spp`` samples: one a vertex, so the ``mis.LAUNCHES``
-    they add equal the launch records' ``vertex.sampling`` spans."""
+def launches_in_a_frame(name: str, bundle, dev, smi: str, spp: int = 2) -> dict:
+    """Launches of the vertex's kernels in a logged ``render_sum_n`` of
+    ``name``'s frame at ``spp`` samples: ``csrc/vertex.cu`` once a vertex,
+    so the ``vertex.LAUNCHES`` it adds equal the launch records'
+    ``vertex.shading`` spans, and ``csrc/mis_sample.cu`` alone never (the
+    vertex's kernel takes the mixture sample; no ``vertex.sampling`` span
+    is left)."""
     import time
 
     import torch
 
-    from raytracer2022_tpu_torch.ops import mis
+    from raytracer2022_tpu_torch.ops import mis, vertex
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.renderer import RenderConfig, render_sum_n
 
@@ -2377,44 +2384,53 @@ def mis_in_a_frame(name: str, bundle, dev, smi: str, spp: int = 2) -> dict:
     cam = make_camera(**bundle.camera_kwargs, device=dev)
     cfg = RenderConfig(width=width, height=height, spp=spp, max_depth=DEPTH, background=bundle.background)
     log: list = []
-    before = mis.LAUNCHES
+    before, mis_before = vertex.LAUNCHES, mis.LAUNCHES
     t0 = time.perf_counter()
     render_sum_n(bundle.scene, cam, cfg, launch_log=log)
     torch.cuda.synchronize()
-    rec = {"launches": mis.LAUNCHES - before, "seconds": time.perf_counter() - t0, "spp": spp,
-           "vertices": sum(e["span_calls"]["vertex.sampling"] for e in log)}
-    assert rec["launches"] == rec["vertices"] > 0, f"{name}: {rec}"
-    print(f"mis_sample in a {name} render {width}x{height} x {spp} spp: {rec['launches']} launches, one a vertex "
-          f"of the launch records, {rec['seconds']:.2f} s ({smi})", flush=True)
+    rec = {"launches": vertex.LAUNCHES - before, "mis_launches": mis.LAUNCHES - mis_before,
+           "seconds": time.perf_counter() - t0, "spp": spp,
+           "vertices": sum(e["span_calls"]["vertex.shading"] for e in log),
+           "sampling_spans": sum(e["span_calls"].get("vertex.sampling", 0) for e in log)}
+    assert rec["launches"] == rec["vertices"] > 0 and rec["mis_launches"] == rec["sampling_spans"] == 0, \
+        f"{name}: {rec}"
+    print(f"vertex kernel in a {name} render {width}x{height} x {spp} spp: {rec['launches']} launches, one a "
+          f"vertex of the launch records; mis_sample alone {rec['mis_launches']} ({rec['seconds']:.2f} s) ({smi})",
+          flush=True)
     return rec
 
 
-def mis_in_a_fit_step(bundle, dev, smi: str) -> dict:
-    """The sampling kernel over one ``cornell_book3``-shaped fit step
-    (FIT_SHAPE, depth 50): none, the render runs with gradients (the trip
-    count's estimate, under ``no_grad``, takes it)."""
+def launches_in_a_fit_step(bundle, dev, smi: str) -> dict:
+    """The vertex's kernels over one ``cornell_book3``-shaped fit step
+    (FIT_SHAPE, depth 50): none, the render runs with gradients; its trip
+    count's estimate, under ``no_grad``, takes ``csrc/vertex.cu``.  Counts
+    are [vertex, mis_sample]."""
     import torch
 
-    from raytracer2022_tpu_torch.ops import mis
+    from raytracer2022_tpu_torch.ops import mis, vertex
     from raytracer2022_tpu_torch.parallel.mesh import fit_regen_split, fit_step_fn
     from raytracer2022_tpu_torch.render.camera import make_camera
     from raytracer2022_tpu_torch.render.renderer import RenderConfig, regen_iters_estimate
 
+    def counts():
+        return vertex.LAUNCHES, mis.LAUNCHES
+
     width, height, spp = FIT_SHAPE
     cam = make_camera(**bundle.camera_kwargs, device=dev)
     rc = RenderConfig(width=width, height=height, spp=spp, max_depth=DEPTH, background=bundle.background)
-    before = mis.LAUNCHES
+    before = counts()
     n_iters = regen_iters_estimate(bundle.scene, cam, width, height, *fit_regen_split(spp), rc.trace_cfg())
-    rec = {"regen_iters": n_iters, "estimate_launches": mis.LAUNCHES - before}
+    rec = {"regen_iters": n_iters, "estimate_launches": [a - b for a, b in zip(counts(), before)]}
     step = fit_step_fn(rc, regen_iters=n_iters)
-    before = mis.LAUNCHES
+    before = counts()
     _, _, loss = step(bundle.scene, cam, torch.zeros((3, height, width), device=dev), 0)
     float(loss)
-    rec["launches_per_step"] = mis.LAUNCHES - before
-    assert rec["launches_per_step"] == 0, f"a fit step launched mis_sample: {rec}"
-    print(f"mis_sample in a cornell_book3-shaped fit step ({width}x{height} x {spp}, {n_iters} iterations): "
-          f"{rec['launches_per_step']} launches a step, {rec['estimate_launches']} in the trip count's estimate "
-          f"({smi})", flush=True)
+    rec["launches_per_step"] = [a - b for a, b in zip(counts(), before)]
+    assert rec["launches_per_step"] == [0, 0] and rec["estimate_launches"][0] > 0 == rec["estimate_launches"][1], \
+        f"a fit step launched a vertex kernel: {rec}"
+    print(f"vertex / mis_sample kernels in a cornell_book3-shaped fit step ({width}x{height} x {spp}, {n_iters} "
+          f"iterations): {rec['launches_per_step']} launches a step, {rec['estimate_launches']} in the trip count's "
+          f"estimate ({smi})", flush=True)
     return rec
 
 
@@ -2422,8 +2438,9 @@ def phase_sampling(dev, smi) -> dict:
     """The vertex's sampling kernel (``csrc/mis_sample.cu``): its build, and
     on wwscene (stand-in assets) and cornell_box_book (book 3's Cornell
     box, the benchmark's cornell_book3) the kernel against its plain version
-    at the first vertex, its launches in a frame render, and none in a fit
-    step."""
+    at the first vertex.  Renders take the mixture sample inside the
+    vertex's kernel, which shares this kernel's lane code: phase ``vertex``
+    counts that this one launches in none of them."""
     import os
     import tempfile
     import time
@@ -2439,9 +2456,133 @@ def phase_sampling(dev, smi) -> dict:
     with tempfile.TemporaryDirectory() as tmp, source_dir_env(os.path.join(tmp, "source")) as src:
         write_stand_in_assets(src)
         for name in MIS_FRAMES:
+            out[name] = mis_at_first_vertex(name, SCENES[name](device=dev), dev, smi)
+    return out
+
+
+VERTEX_RTOL = 2e-5  # the vertex's kernel against its plain version on the card, same block
+VERTEX_OUTPUTS = ("radiance_add", "o", "d", "tm", "throughput")
+VERTEX_WRITE_BYTES = 53  # radiance, origin, direction, throughput 12 B each, time 4, cont 1
+# bytes a lane reads besides the variates: hit 1, p 12, normal 12, front 1,
+# material kind and parameter 8, texture kind 4, ray 12, time 4, throughput 12, alive 1
+VERTEX_READ_BYTES = 67
+# and by its texture kind: a colour (solid, checker: the picked one), the
+# noise scale, uv and atlas id and size and a texel (image, OBJ uv)
+VERTEX_TEXTURE_BYTES = {"solid": 12, "checker": 12, "noise": 4, "image": 24, "objuv": 24}
+
+
+def vertex_bytes(scene, shade, rows: int) -> int:
+    """The bytes ``csrc/vertex.cu`` moves at least in one launch over the
+    lanes of ``shade``: each input read once (a lane's record, its ``rows``
+    variates and its texture kind's inputs; the lights list and the Perlin
+    tables), each output written once."""
+    from raytracer2022_tpu_torch.scene.types import TEX_CHECKER, TEX_IMAGE, TEX_NOISE, TEX_OBJUV
+
+    n = shade.tex_kind.shape[0]
+    features = scene.stats.features
+    kinds = {"checker": TEX_CHECKER, "noise": TEX_NOISE, "image": TEX_IMAGE, "objuv": TEX_OBJUV}
+    textured = {name: int((shade.tex_kind == k).sum()) if name in features else 0 for name, k in kinds.items()}
+    tex = sum(VERTEX_TEXTURE_BYTES[name] * c for name, c in textured.items())
+    tex += VERTEX_TEXTURE_BYTES["solid"] * (n - sum(textured.values()))
+    tables = 28 * len(scene.stats.light_ids) + (6 * 256 * 4 if "noise" in features else 0)
+    return n * (VERTEX_READ_BYTES + 4 * rows + VERTEX_WRITE_BYTES) + tex + tables
+
+
+def vertex_at_first_vertex(name: str, bundle, dev, smi: str) -> dict:
+    """The vertex's kernel on the first vertex of ``name``'s frame: the hit
+    records of MIS_LANES camera rays spread over it, one variate block; the
+    kernel against its plain version on every lane (``cont`` equal, each
+    output's max abs error and bit-equal share), its device time by the
+    profiler beside its byte bound, and its and the plain version's time a
+    call by CUDA events."""
+    import torch
+
+    from raytracer2022_tpu_torch.ops import vertex
+    from raytracer2022_tpu_torch.ops.intersect import closest_hit
+    from raytracer2022_tpu_torch.render.camera import make_camera
+    from raytracer2022_tpu_torch.render.integrator import TraceConfig
+    from raytracer2022_tpu_torch.render.renderer import _regen_gen_rays
+
+    width, height = MIS_FRAMES[name]
+    scene = bundle.scene
+    cam = make_camera(**bundle.camera_kwargs, device=dev)
+    cfg = TraceConfig(max_depth=DEPTH, background=bundle.background)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pix = torch.arange(MIS_LANES, device=dev) * max(width * height // MIS_LANES, 1) % (width * height)
+    with torch.no_grad():
+        o, d, tm = _regen_gen_rays(cam, width, height)(gen, pix)
+        hit, shade = closest_hit(scene, o, d, tm, T_MIN, float("inf"), gen, False)
+    th = torch.ones((3, MIS_LANES), device=dev)
+    alive = torch.ones(MIS_LANES, dtype=torch.bool, device=dev)
+    rows = vertex.variate_rows(len(scene.stats.light_ids))
+    u = torch.rand((rows, MIS_LANES), generator=gen, device=dev)
+    want = dict(vertex._inputs(scene, hit, shade, d, tm, th, alive), var=(u, torch.float32, tuple(u.shape)))
+    before = vertex.LAUNCHES
+    with torch.no_grad():
+        got = vertex._vertex_cuda(scene, cfg, want)
+        ref = vertex.vertex_tail_plain(scene, cfg, hit, shade, d, tm, th, alive, u)
+    torch.cuda.synchronize()
+    assert vertex.LAUNCHES == before + 1, "the vertex kernel did not count its launch"
+    assert torch.equal(got.cont, ref.cont), f"{name}: the kernel's cont is not the plain version's"
+    rec = {"lanes": MIS_LANES, "hit_lanes": int(hit.hit.sum()), "continued": int(got.cont.sum()), "rows": rows,
+           "features": sorted(scene.stats.features)}
+    for key in VERTEX_OUTPUTS:
+        g, w = getattr(got, key), getattr(ref, key)
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), f"{name}: {key}'s NaN lanes differ"
+        diff = (torch.nan_to_num(g) - torch.nan_to_num(w)).abs()
+        scale = w.abs() if w.dim() == 1 else w.norm(dim=0)
+        rel = (diff if w.dim() == 1 else diff.norm(dim=0)) / torch.nan_to_num(scale).clamp_min(1e-30)
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        rec[key] = {"max_abs_err": _max0(diff), "max_rel_err": _max0(rel),
+                    "bit_equal_share": float((same if w.dim() == 1 else same.all(dim=0)).float().mean())}
+        assert rec[key]["max_rel_err"] <= VERTEX_RTOL, f"{name}: {key} {rec[key]}"
+
+    def kernel():
+        vertex._vertex_cuda(scene, cfg, want)
+
+    with torch.no_grad():
+        rec.update(ms=_time_cuda(kernel, MIS_REPS), device_ms=_device_ms(kernel, MIS_REPS, match="vertex_kernel"),
+                   plain_ms=_time_cuda(lambda: vertex.vertex_tail_plain(scene, cfg, hit, shade, d, tm, th, alive, u),
+                                       MIS_REPS),
+                   bytes=vertex_bytes(scene, shade, rows))
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    errs = ", ".join(f"{k} {rec[k]['max_abs_err']:.3g} ({rec[k]['bit_equal_share']:.5f} bit-equal)"
+                     for k in VERTEX_OUTPUTS)
+    print(f"vertex {name} first vertex, {MIS_LANES} lanes ({rec['hit_lanes']} hit, {rec['continued']} continue, "
+          f"{rows} variate rows, features {rec['features']}): max abs err {errs}; {rec['ms']:.4f} ms a call by "
+          f"events, {1e3 * rec['device_ms']:.2f} us of device time ({100 * rec['share_of_bound']:.1f}% of its "
+          f"bound {1e3 * rec['bound_ms']:.2f} us, {rec['bytes']} B); plain version {rec['plain_ms']:.4f} ms ({smi})",
+          flush=True)
+    return rec
+
+
+def phase_vertex(dev, smi) -> dict:
+    """The vertex's kernel after its closest hit (``csrc/vertex.cu``): its
+    build, and on wwscene (stand-in assets) and cornell_box_book (the
+    benchmark's cornell_book3) the kernel against its plain version at the
+    first vertex, with its time and byte bound, and its launches in a frame
+    render (one a ``vertex.shading`` span; ``mis_sample`` alone none); and
+    none in a fit step."""
+    import os
+    import tempfile
+    import time
+
+    from raytracer2022_tpu_torch.cuda_build import build
+    from raytracer2022_tpu_torch.scene.library import SCENES
+
+    t0 = time.perf_counter()
+    log = build("vertex.cu")[1]
+    print(f"vertex kernel built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(log)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, source_dir_env(os.path.join(tmp, "source")) as src:
+        write_stand_in_assets(src)
+        for name in MIS_FRAMES:
             bundle = SCENES[name](device=dev)
-            out[name] = dict(mis_at_first_vertex(name, bundle, dev, smi), frame=mis_in_a_frame(name, bundle, dev, smi))
-    out["fit"] = mis_in_a_fit_step(SCENES["cornell_box_book"](device=dev), dev, smi)
+            out[name] = dict(vertex_at_first_vertex(name, bundle, dev, smi),
+                             frame=launches_in_a_frame(name, bundle, dev, smi))
+    out["fit"] = launches_in_a_fit_step(SCENES["cornell_box_book"](device=dev), dev, smi)
     return out
 
 
@@ -2801,6 +2942,9 @@ def main(argv=None) -> int:
     sampling = phase_sampling(dev, smi)
     print(f"[phase sampling: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     t_phase = time.perf_counter()
+    vert = phase_vertex(dev, smi)
+    print(f"[phase vertex: {time.perf_counter() - t_phase:.1f} s]", flush=True)
+    t_phase = time.perf_counter()
     multi = phase_multi(dev, smi, mesh_means, diff["cornell"]["fwd_bwd_s"])
     print(f"[phase multi: {time.perf_counter() - t_phase:.1f} s]", flush=True)
     diff_keys = ("n_iters", "n_drain", "estimate_s", "fwd_bwd_s", "fwd_s", "fwd_bwd_mpaths", "fwd_mpaths",
@@ -2869,11 +3013,20 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "raytracer2022_tpu_torch/csrc/mis_sample.cu",
         "replaces": None,  # the JAX package left the vertex's mixture sample to XLA's fusion
-        "launches_per_frame_render": {name: sampling[name]["frame"]["launches"] for name in MIS_FRAMES},
-        "launches_per_fit_step": sampling["fit"]["launches_per_step"],
+        "launches_per_frame_render": {name: vert[name]["frame"]["mis_launches"] for name in MIS_FRAMES},
+        "launches_per_fit_step": vert["fit"]["launches_per_step"][1],
         "max_rel_err": max(max(sampling[name]["dir_max_rel_err"], sampling[name]["pdf_max_rel_err"])
                            for name in MIS_FRAMES),
-        "shapes": {name: {k: v for k, v in sampling[name].items() if k != "frame"} for name in MIS_FRAMES},
+        "shapes": sampling,
+    }, {
+        "name": "vertex",
+        "route": "cuda",
+        "source": "raytracer2022_tpu_torch/csrc/vertex.cu",
+        "replaces": None,  # the JAX package left the vertex's shading, sampling and update to XLA's fusion
+        "launches_per_frame_render": {name: vert[name]["frame"]["launches"] for name in MIS_FRAMES},
+        "launches_per_fit_step": vert["fit"]["launches_per_step"][0],
+        "max_rel_err": max(vert[name][k]["max_rel_err"] for name in MIS_FRAMES for k in VERTEX_OUTPUTS),
+        "shapes": {name: {k: v for k, v in vert[name].items() if k != "frame"} for name in MIS_FRAMES},
     }]
     print(f"[smoke total: {time.perf_counter() - t_start:.1f} s]", flush=True)
     print(json.dumps({"kernels": kernels}))

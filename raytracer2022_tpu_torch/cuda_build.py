@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled at first
 use into ``kernels/<stem>-<hash>.so`` under :func:`build_root` (the hash
-covers the source and the flags, so an edited source rebuilds), then
+covers the source, the ``csrc/`` headers it includes and the flags, so an
+edited source or header rebuilds), then
 loaded with ctypes.  The sources ship with the package, installed or not.
 Nothing is built when the package is imported: only a kernel launch on a
 CUDA tensor reaches here.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -68,6 +70,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _text(path: str) -> bytes:
+    """The bytes of ``path`` followed by those of each ``csrc/`` header it
+    includes by a quoted name: what its build depends on."""
+    with open(path, "rb") as f:
+        text = f.read()
+    for name in re.findall(rb'^#include "([^"]+)"', text, flags=re.MULTILINE):
+        text += _text(os.path.join(CSRC_DIR, name.decode()))
+    return text
+
+
 def build(source: str) -> tuple[str, str, float]:
     """Compile ``csrc/<source>`` unless a build of this exact source exists.
 
@@ -75,8 +87,7 @@ def build(source: str) -> tuple[str, str, float]:
     empty when the cached library was reused.
     """
     src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(_text(src) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     so_path = os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
     if os.path.exists(so_path):

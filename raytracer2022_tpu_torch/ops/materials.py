@@ -15,7 +15,7 @@ import math
 import torch
 
 from ..scene.types import DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, METAL
-from .sampling import uniform, uniform_in_unit_sphere
+from .sampling import in_unit_ball_local
 from .textures import eval_texture_shade
 from .vecmath import dot, reflect, refract, scale, to_unit
 
@@ -46,17 +46,20 @@ def emitted(shade, hit, tex_val: torch.Tensor) -> torch.Tensor:
     return torch.where((is_light & hit.front & hit.hit)[None], tex_val, 0.0)
 
 
-def scatter(shade, hit, tex_val, d_in, tm, gen: torch.Generator) -> Scatter:
-    """One masked pass implementing all five scatter functions."""
+def scatter(shade, hit, tex_val, d_in, tm, u: torch.Tensor) -> Scatter:
+    """One masked pass implementing all five scatter functions, of the
+    variates ``u`` f32[3, N] (U[0, 1)): metal's fuzz and the isotropic
+    phase function take one ball sample of all three rows, the
+    dielectric's reflect test the first (a lane has one material)."""
     kind = shade.mat_kind
     param = shade.mat_param
     n = hit.normal
-    shape = tuple(tm.shape)
+    ball = in_unit_ball_local(u[0], u[1], u[2])
 
     # Metal (material/mod.rs:85-96): reflect + fuzz * in-ball jitter; the
     # scattered ray's time is 0 in the reference (mod.rs:92)
     unit_d = to_unit(d_in)
-    metal_dir = reflect(unit_d, n) + scale(uniform_in_unit_sphere(gen, shape), param)
+    metal_dir = reflect(unit_d, n) + scale(ball, param)
 
     # Dielectric (material/mod.rs:120-147), neutral IOR on other lanes
     ir = torch.where(kind == DIELECTRIC, param, 1.5)
@@ -67,22 +70,19 @@ def scatter(shade, hit, tex_val, d_in, tm, gen: torch.Generator) -> Scatter:
     r0 = (1.0 - refraction_ratio) / (1.0 + refraction_ratio)
     r0 = r0 * r0
     reflectance = r0 + (1.0 - r0) * (1.0 - cos_theta) ** 5
-    rnd = uniform(gen, shape)
-    do_reflect = cannot_refract | (reflectance > rnd)
+    do_reflect = cannot_refract | (reflectance > u[0])
     diel_dir = torch.where(
         do_reflect[None], reflect(unit_d, n), refract(unit_d, n, refraction_ratio)
     )
-
-    # Isotropic (material/mod.rs:207-213): a uniform direction in the ball
-    iso_dir = uniform_in_unit_sphere(gen, shape)
 
     is_metal = kind == METAL
     is_diel = kind == DIELECTRIC
     return Scatter(
         has_scatter=kind != DIFFUSE_LIGHT,
         is_specular=is_metal | is_diel | (kind == ISOTROPIC),
+        # Isotropic (material/mod.rs:207-213): the ball sample itself
         spec_dir=torch.where(
-            is_metal[None], metal_dir, torch.where(is_diel[None], diel_dir, iso_dir)
+            is_metal[None], metal_dir, torch.where(is_diel[None], diel_dir, ball)
         ),
         spec_time=torch.where(is_metal, 0.0, tm),
         # Dielectric attenuation is (1,1,1) (mod.rs:144)

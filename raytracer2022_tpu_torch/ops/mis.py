@@ -11,13 +11,16 @@ lights).
 block of uniform variates ``u`` f32[k, N] (:func:`variate_rows`: rows 0-1
 the cosine lobe, row 2 the 50/50 pick, rows 3-4 the picked light's pair,
 row 5 the light pick where there are several lights) and returns
-``(new_dir f32[3, N], pdf_val f32[N])``.  Every vertex draws one such
-block, on every device and with or without gradients.  Where
-:func:`kernel_takes` holds (CUDA tensors, no gradient wanted through the
-block, and lights the kernel samples: every forward render on the card)
-it launches the hand-written kernel ``csrc/mis_sample.cu``, counted in
-``LAUNCHES``; everywhere else (the CPU, gradient renders on either device)
-it runs :func:`mis_sample_plain`, the same function in plain PyTorch.
+``(new_dir f32[3, N], pdf_val f32[N])``.  A vertex's variate block
+(``ops/vertex.py``) begins with these rows.  Forward renders on the card
+take the mixture sample inside the vertex's kernel ``csrc/vertex.cu``,
+which shares this kernel's lane code (``csrc/mis_sample.cuh``); every other
+vertex calls :func:`mis_sample`.  Where :func:`kernel_takes` holds (CUDA
+tensors, no gradient wanted through the block, and lights the kernel
+samples) it launches the hand-written kernel ``csrc/mis_sample.cu``,
+counted in ``LAUNCHES``; everywhere else (the CPU, gradient renders on
+either device) it runs :func:`mis_sample_plain`, the same function in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -47,16 +50,22 @@ def variate_rows(n_lights: int) -> int:
     return 5 if n_lights == 1 else 6
 
 
+def lights_take(scene) -> bool:
+    """Whether the kernel samples the scene's lights: at most MAX_LIGHTS,
+    each a sphere or a rect (``csrc/vertex.cu`` shares the rule)."""
+    kinds = scene.stats.light_kinds
+    return len(kinds) <= MAX_LIGHTS and set(kinds) <= {SPHERE, RECT}
+
+
 def kernel_takes(scene, p: torch.Tensor, normal: torch.Tensor) -> bool:
     """Whether the vertex's sampling goes to the kernel: CUDA tensors, grad
-    mode off or nothing in the block requiring a gradient, and at most
-    MAX_LIGHTS lights, each a sphere or a rect."""
+    mode off or nothing in the block requiring a gradient, and lights the
+    kernel samples (:func:`lights_take`)."""
     if not p.is_cuda:
         return False
     if torch.is_grad_enabled() and (p.requires_grad or normal.requires_grad or scene.params.requires_grad):
         return False
-    kinds = scene.stats.light_kinds
-    return len(kinds) <= MAX_LIGHTS and set(kinds) <= {SPHERE, RECT}
+    return lights_take(scene)
 
 
 def mis_sample_plain(scene, p: torch.Tensor, normal: torch.Tensor, u: torch.Tensor):

@@ -27,20 +27,20 @@ def uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0) -> to
     return lo + (hi - lo) * u
 
 
-def uniform_on_unit_sphere(gen, shape) -> torch.Tensor:
-    """Uniform direction on the unit sphere, via the z/phi closed form."""
-    z = uniform(gen, shape, -1.0, 1.0)
-    phi = uniform(gen, shape, 0.0, 2.0 * PI)
+def on_unit_sphere_local(uz: torch.Tensor, uphi: torch.Tensor) -> torch.Tensor:
+    """Uniform direction on the unit sphere, via the z/phi closed form, of
+    the U[0, 1) variates ``uz``, ``uphi``."""
+    z = -1.0 + 2.0 * uz
+    phi = 2.0 * PI * uphi
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     return vec3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
-def uniform_in_unit_sphere(gen, shape) -> torch.Tensor:
-    """Uniform point in the unit ball (vec.rs:69-76): U^(1/3) radius times a
-    uniform direction."""
-    direction = uniform_on_unit_sphere(gen, shape)
-    radius = uniform(gen, shape) ** (1.0 / 3.0)
-    return scale(direction, radius)
+def in_unit_ball_local(uz: torch.Tensor, uphi: torch.Tensor, ur: torch.Tensor) -> torch.Tensor:
+    """Uniform point in the unit ball (vec.rs:69-76) of the U[0, 1)
+    variates ``uz``, ``uphi``, ``ur``: ``ur^(1/3)`` radius times the
+    direction :func:`on_unit_sphere_local` gives."""
+    return scale(on_unit_sphere_local(uz, uphi), ur ** (1.0 / 3.0))
 
 
 def uniform_in_unit_disk(gen, shape) -> torch.Tensor:

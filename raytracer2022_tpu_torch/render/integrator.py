@@ -4,10 +4,10 @@ Counterpart of ``raytracer2022_tpu/render/integrator.py`` (reference
 ``ray_color``, raytracer/src/main.rs:233-278).  Per path vertex: closest
 hit -> emitted -> scatter -> mixture-PDF sample -> throughput/radiance
 update; the vertex math (:func:`_eval_vertex`) is the JAX package's.
-Its mixture sample draws one block of variates a vertex, on every device
-and with or without gradients, and hands it to :func:`ops.mis.mis_sample`:
-the hand-written kernel for card tensors that want no gradient, its plain
-version everywhere else.
+After the closest hit it draws one block of variates a vertex, on every
+device and with or without gradients, and hands the rest to
+:func:`ops.vertex.vertex_tail`: the hand-written kernel for card tensors
+that want no gradient, its plain version everywhere else.
 
 Forward: :func:`trace_regen` is the path regeneration wavefront with three
 schedules (:class:`Schedule`): the global sample pool, the pixel pool and
@@ -43,13 +43,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import mis
 from ..ops.intersect import closest_hit
-from ..ops.materials import emitted, scatter, scattering_pdf_lambertian, texture_value
-from ..ops.sampling import uniform
 from ..ops.sort import ray_sort_key, sort_by_key
-from ..ops.vecmath import dot, scale, to_unit, vec3
-from ..scene.types import ISOTROPIC, LAMBERTIAN, SceneData
+from ..ops.vertex import Vertex, vertex_tail
+from ..scene.types import SceneData
 from ..utils.profiling import count_lanes, host_sync, span
 
 
@@ -98,34 +95,12 @@ def _checkpointed(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def _background(cfg: TraceConfig, d):
-    if cfg.background is not None:
-        return vec3(*(torch.full_like(d[0], float(c)) for c in cfg.background))
-    # RTiOW sky gradient of the book1/book2 golden images
-    unit_d = to_unit(d)
-    tt = 0.5 * (unit_d[1] + 1.0)
-    ones = torch.ones_like(tt)
-    white = vec3(ones, ones, ones)
-    blue = vec3(0.5 * ones, 0.7 * ones, ones)
-    return scale(white, 1.0 - tt) + scale(blue, tt)
-
-
-class _Vertex(NamedTuple):
-    """Result of evaluating one path vertex for the whole wavefront."""
-
-    radiance_add: torch.Tensor  # (3, N) throughput-weighted contribution
-    cont: torch.Tensor  # bool[N] path continues
-    o: torch.Tensor  # next ray (valid where cont)
-    d: torch.Tensor
-    tm: torch.Tensor
-    throughput: torch.Tensor  # updated throughput (valid where cont)
-
-
 def _eval_vertex(
     scene: SceneData, cfg: TraceConfig, o, d, tm, throughput, alive, gen: torch.Generator,
     recompute_t: bool = True,
-) -> _Vertex:
-    """One path vertex: closest hit -> emitted -> scatter -> MIS sample.
+) -> Vertex:
+    """One path vertex: closest hit, then :func:`ops.vertex.vertex_tail`
+    (texture, emission, scatter, mixture sample and update).
 
     Semantics of ray_color (main.rs:233-278): the specular branch carries
     attenuation without emission; the diffuse branch samples a 50/50
@@ -142,55 +117,7 @@ def _eval_vertex(
 
     with span("vertex.closest_hit"):
         hit, shade = closest_hit(scene, o, d, tm, cfg.t_min, float("inf"), gen, recompute_t)
-    with span("vertex.shading"):
-        tex_val = texture_value(scene.textures, shade, hit, scene.stats.features)
-        em = emitted(shade, hit, tex_val)
-        sc = scatter(shade, hit, tex_val, d, tm, gen)
-
-    with span("vertex.sampling"):
-        u = uniform(gen, (mis.variate_rows(len(scene.stats.light_ids)), tm.shape[0]))
-        new_dir, pdf_val = mis.mis_sample(scene, hit.p.contiguous(), hit.normal.contiguous(), u)
-
-    with span("vertex.update"):
-        spdf = scattering_pdf_lambertian(hit.normal, new_dir)
-        lamb = shade.mat_kind == LAMBERTIAN
-
-        miss = alive & ~hit.hit
-        absorb = alive & hit.hit & ~sc.has_scatter
-        specular = alive & hit.hit & sc.has_scatter & sc.is_specular
-        diffuse = alive & hit.hit & sc.has_scatter & ~sc.is_specular & lamb
-        pdf_ok = pdf_val > 0.0  # NaN compares False
-        diffuse = diffuse & pdf_ok
-
-        radiance_add = torch.where(miss[None], throughput * _background(cfg, d), 0.0)
-        radiance_add = radiance_add + torch.where((absorb | diffuse)[None], throughput * em, 0.0)
-
-        w_diffuse = sc.attenuation * (spdf / torch.where(diffuse & pdf_ok, pdf_val, 1.0))[None]
-        throughput = torch.where(
-            specular[None],
-            throughput * sc.attenuation,
-            torch.where(diffuse[None], throughput * w_diffuse, throughput),
-        )
-
-        next_dir = torch.where(specular[None], sc.spec_dir, new_dir)
-        next_tm = torch.where(specular, sc.spec_time, tm)
-        if cfg.spawn_eps > 0.0:
-            # origin offset along the face normal toward the outgoing side
-            is_surface = shade.mat_kind != ISOTROPIC
-            eps = cfg.spawn_eps * torch.clamp(torch.abs(hit.p).amax(dim=0), min=1.0)
-            side = torch.sign(dot(hit.normal, next_dir))
-            new_o = hit.p + scale(hit.normal, eps * side * is_surface.to(eps.dtype))
-        else:
-            new_o = hit.p
-
-        return _Vertex(
-            radiance_add=radiance_add,
-            cont=specular | diffuse,
-            o=new_o,
-            d=next_dir,
-            tm=next_tm,
-            throughput=throughput,
-        )
+    return vertex_tail(scene, cfg, hit, shade, d, tm.contiguous(), throughput.contiguous(), alive.contiguous(), gen)
 
 
 def _first_true(mask: torch.Tensor, k: int) -> torch.Tensor:

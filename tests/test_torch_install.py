@@ -24,7 +24,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGV = ["--device", "cpu", "--scene", "wwscene", "--width", "32", "--height", "18", "--spp", "2", "--quiet"]
 SHUTTLE = (20, 16)  # 640 triangles: the CPU's plain version walks them by brute force
 SHIPPED = ("raytracer2022_tpu_torch/csrc/bvh8.cu", "raytracer2022_tpu_torch/csrc/table_grad.cu",
-           "raytracer2022_tpu_torch/csrc/rt_native.cpp", "raytracer2022_tpu_torch/tools/standins.py")
+           "raytracer2022_tpu_torch/csrc/mis_sample.cu", "raytracer2022_tpu_torch/csrc/mis_sample.cuh",
+           "raytracer2022_tpu_torch/csrc/vertex.cu", "raytracer2022_tpu_torch/csrc/rt_native.cpp",
+           "raytracer2022_tpu_torch/tools/standins.py")
 
 
 @pytest.fixture(scope="module")

@@ -23,11 +23,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from raytracer2022_tpu_torch.ops import mis  # noqa: E402
+from raytracer2022_tpu_torch.ops import mis, vertex  # noqa: E402
 from raytracer2022_tpu_torch.ops.lights import _light_params, lights_pdf  # noqa: E402
 from raytracer2022_tpu_torch.ops.sampling import cos_pdf_value, cosine_local, sphere_cone_local, uniform  # noqa: E402
 from raytracer2022_tpu_torch.ops.vecmath import length_sqr, onb_from_w, onb_local, to_unit, vec3  # noqa: E402
-from raytracer2022_tpu_torch.render import integrator  # noqa: E402
 from raytracer2022_tpu_torch.render.integrator import TraceConfig, _eval_vertex  # noqa: E402
 from raytracer2022_tpu_torch.scene.builder import SceneBuilder  # noqa: E402
 from raytracer2022_tpu_torch.scene.types import RECT, SPHERE, TRIANGLE  # noqa: E402
@@ -244,10 +243,11 @@ def _composite_sampling(scene, p, normal, gen):
 def test_cpu_vertices_keep_the_parents_composite(case, mode, monkeypatch):
     """The routing of ``_eval_vertex`` on the CPU, under ``no_grad``, under
     grad, and with rays that require a gradient: the vertex draws one
-    block of ``variate_rows(L)`` rows from its own generator and runs
-    ``mis_sample_plain`` on it, once; every output equals, bit for bit,
-    the vertex that calls ``mis_sample_plain`` directly; the kernel is
-    never launched, and the throughput still requires grad."""
+    block of ``vertex.variate_rows(L)`` rows from its own generator and
+    runs ``mis_sample_plain`` on its first ``mis.variate_rows(L)`` rows,
+    once; every output equals, bit for bit, the vertex that calls
+    ``mis_sample_plain`` directly; the kernel is never launched, and the
+    throughput still requires grad."""
     scene = _scene(case)
     rng = np.random.default_rng(8)
     n = 1024
@@ -262,12 +262,12 @@ def test_cpu_vertices_keep_the_parents_composite(case, mode, monkeypatch):
     cfg = TraceConfig(max_depth=4, background=(0.0, 0.0, 0.0))
     launches = mis.LAUNCHES
 
-    def vertex():
+    def run_vertex():
         with torch.no_grad() if mode == "no_grad" else torch.enable_grad():
             return _eval_vertex(scene, cfg, o, d, tm, th, alive, torch.Generator().manual_seed(11))
 
     draws, blocks = [], []
-    real_uniform, real_plain = integrator.uniform, mis.mis_sample_plain
+    real_uniform, real_plain = vertex.uniform, mis.mis_sample_plain
 
     def drawn(gen, shape, *args):
         draws.append((gen.get_state(), tuple(shape)))
@@ -280,16 +280,18 @@ def test_cpu_vertices_keep_the_parents_composite(case, mode, monkeypatch):
     def no_kernel(*args):
         raise AssertionError("a CPU vertex launched the kernel")
 
-    monkeypatch.setattr(integrator, "uniform", drawn)
+    monkeypatch.setattr(vertex, "uniform", drawn)
     monkeypatch.setattr(mis, "mis_sample_plain", plain)
     monkeypatch.setattr(mis, "_mis_sample_cuda", no_kernel)
-    got = vertex()
+    got = run_vertex()
     ((state, shape),) = draws
     (u,) = blocks
-    assert shape == (mis.variate_rows(len(scene.stats.light_ids)), n)
-    assert torch.equal(u, torch.rand(shape, generator=torch.Generator().set_state(state)))
+    n_lights = len(scene.stats.light_ids)
+    assert shape == (vertex.variate_rows(n_lights), n)
+    block = torch.rand(shape, generator=torch.Generator().set_state(state))
+    assert torch.equal(u, block[: mis.variate_rows(n_lights)])
     monkeypatch.setattr(mis, "mis_sample", real_plain)
-    want = vertex()
+    want = run_vertex()
     for g, w in zip(got, want):
         assert torch.equal(g.detach(), w.detach()), "a CPU vertex left the plain version"
     assert got.cont.any() and mis.LAUNCHES == launches
@@ -375,47 +377,42 @@ def test_kernel_is_its_plain_version(card, case, inside):
 
 
 @pytest.mark.cuda
-def test_forward_renders_on_the_card_take_the_kernel_and_gradients_do_not(card, monkeypatch):
-    """A logged forward render launches the kernel once a vertex (the
-    ``mis.LAUNCHES`` it adds equal its ``vertex.sampling`` spans); a vertex
-    whose rays require a gradient launches it never and runs the plain
-    version on the same variates as the forward vertex of the same seed,
-    to the kernel's tolerance."""
+def test_forward_renders_on_the_card_take_the_kernel_and_gradients_do_not(card):
+    """A logged forward render takes its mixture samples inside the
+    vertex's kernel: ``csrc/vertex.cu`` launches once a ``vertex.shading``
+    span and this kernel alone never.  A vertex whose rays require a
+    gradient launches neither and runs the plain versions on the same
+    variates as the forward vertex of the same seed, to the kernel's
+    tolerance."""
     from raytracer2022_tpu_torch.render import renderer as R
     from raytracer2022_tpu_torch.render.camera import make_camera
 
     scene = _scene("flipped_rect", device=card)
     cam = make_camera((0, 2, -8), (0, 1, 0), (0, 1, 0), 40, 1.0, device=card)
     log: list = []
-    before = mis.LAUNCHES
+    before, fused = mis.LAUNCHES, vertex.LAUNCHES
     R.render_sum_n(scene, cam, R.RenderConfig(width=64, height=48, spp=8, max_depth=6), launch_log=log)
-    assert mis.LAUNCHES - before == sum(e["span_calls"]["vertex.sampling"] for e in log) > 0
+    assert mis.LAUNCHES == before
+    assert vertex.LAUNCHES - fused == sum(e["span_calls"]["vertex.shading"] for e in log) > 0
     o = torch.zeros((3, 256), device=card)
     o[1] = 2.0
     o[2] = -8.0
     d = torch.randn((3, 256), device=card, generator=torch.Generator(device=card).manual_seed(1))
     d[2] = d[2].abs() + 1.0
-    blocks, outs, launches = [], [], []
-    real = mis.mis_sample
-
-    def sample(scene, p, normal, u):
-        blocks.append(u)
-        outs.append(real(scene, p, normal, u))
-        return outs[-1]
-
-    monkeypatch.setattr(mis, "mis_sample", sample)
+    outs, launches = [], []
     for grad in (False, True):
-        before = mis.LAUNCHES
+        before, fused = mis.LAUNCHES, vertex.LAUNCHES
         with torch.set_grad_enabled(grad):
-            vx = _eval_vertex(scene, TraceConfig(max_depth=4), o.clone().requires_grad_(grad), d,
-                              torch.zeros(256, device=card), torch.ones((3, 256), device=card),
-                              torch.ones(256, dtype=torch.bool, device=card), torch.Generator(device=card).manual_seed(0))
-        launches.append(mis.LAUNCHES - before)
-    assert launches == [1, 0] and vx.throughput.requires_grad
-    assert torch.equal(blocks[0], blocks[1])
-    (kdir, kpdf), (pdir, ppdf) = outs
-    assert float(((kdir - pdir.detach()).norm(dim=0) / pdir.detach().norm(dim=0)).max()) <= 1e-5
-    assert torch.equal(torch.isnan(kpdf), torch.isnan(ppdf))
-    rel = (kpdf - ppdf.detach()).abs() / ppdf.detach().abs().clamp_min(1e-30)
-    assert float(torch.where(torch.isnan(ppdf), 0.0, rel).max()) <= 1e-5
-    assert math.isfinite(float(vx.radiance_add.sum()))
+            outs.append(_eval_vertex(scene, TraceConfig(max_depth=4), o.clone().requires_grad_(grad), d,
+                                     torch.zeros(256, device=card), torch.ones((3, 256), device=card),
+                                     torch.ones(256, dtype=torch.bool, device=card),
+                                     torch.Generator(device=card).manual_seed(0)))
+        launches.append((vertex.LAUNCHES - fused, mis.LAUNCHES - before))
+    assert launches == [(1, 0), (0, 0)] and outs[1].throughput.requires_grad
+    kernel, plain = outs
+    assert torch.equal(kernel.cont, plain.cont) and kernel.cont.any()
+    for name in ("radiance_add", "o", "d", "tm", "throughput"):
+        got, want = getattr(kernel, name), getattr(plain, name).detach()
+        scale = want.abs().clamp_min(1e-30) if want.dim() == 1 else want.norm(dim=0, keepdim=True).clamp_min(1e-30)
+        assert float(((got - want).abs() / scale).max()) <= 1e-5, name
+    assert math.isfinite(float(kernel.radiance_add.sum()))

@@ -90,7 +90,7 @@ def test_scatter_deterministic_parts_match_jax(scenes):
     tv_j = jmat.texture_value(scenes[0].textures, sj, hj, frozenset())
     tv_t = tmat.texture_value(scenes[1].textures, st, ht, frozenset())
     sc_j = jmat.scatter(sj, hj, tv_j, jnp.asarray(d), hj.t, jax.random.PRNGKey(1))
-    sc_t = tmat.scatter(st, ht, tv_t, torch.as_tensor(d), ht.t, torch.Generator().manual_seed(1))
+    sc_t = tmat.scatter(st, ht, tv_t, torch.as_tensor(d), ht.t, sp.uniform(_gen(1), (3, ht.t.shape[0])))
     for f in ("has_scatter", "is_specular"):
         np.testing.assert_array_equal(getattr(sc_t, f).numpy()[same], np.asarray(getattr(sc_j, f))[same])
     np.testing.assert_array_equal(sc_t.attenuation.numpy()[:, same], np.asarray(sc_j.attenuation)[:, same])
@@ -164,7 +164,7 @@ def _gen(seed):
 
 
 def test_uniform_in_unit_sphere_moments():
-    v = sp.uniform_in_unit_sphere(_gen(0), (N,)).numpy()
+    v = sp.in_unit_ball_local(*sp.uniform(_gen(0), (3, N))).numpy()
     r = np.linalg.norm(v, axis=0)
     assert r.max() <= 1.0 + 1e-6
     assert abs(r.mean() - 0.75) < 5e-3
@@ -206,7 +206,7 @@ def test_to_sphere_cone():
 
 
 def test_uniform_on_unit_sphere_moments_and_cos_pdf():
-    v = sp.uniform_on_unit_sphere(_gen(6), (N,)).numpy()
+    v = sp.on_unit_sphere_local(*sp.uniform(_gen(6), (2, N))).numpy()
     np.testing.assert_allclose(np.linalg.norm(v, axis=0), 1.0, rtol=1e-4)
     assert np.abs(v.mean(axis=1)).max() < 5e-3
     assert np.abs(v.var(axis=1) - 1 / 3).max() < 5e-3
@@ -217,6 +217,6 @@ def test_uniform_on_unit_sphere_moments_and_cos_pdf():
 
 
 def test_generator_streams_are_reproducible():
-    a = sp.uniform_in_unit_sphere(_gen(5), (64,))
-    b = sp.uniform_in_unit_sphere(_gen(5), (64,))
+    a = sp.in_unit_ball_local(*sp.uniform(_gen(5), (3, 64)))
+    b = sp.in_unit_ball_local(*sp.uniform(_gen(5), (3, 64)))
     torch.testing.assert_close(a, b, rtol=0, atol=0)
